@@ -1,0 +1,396 @@
+"""Drive the PyTorch/CUDA port's CKKS keyswitch path once on an H100.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line (any mismatch raises, so the script
+exits non-zero):
+
+  1. build   compile the four CUDA kernels from ``src/repro_torch/csrc``
+             (one nvcc per source, in parallel); print the card's name
+             and power limit;
+  2. kernels each kernel at the paper shapes (logN=16, level 35: l=36,
+             k=12, l_ext=48, dnum=3, alpha=12) against its plain PyTorch
+             version on the same inputs, exact integer equality; median
+             kernel and plain times from CUDA events;
+  3. main    ``CKKSContext(PAPER_PARAMS, device="cuda")``: encrypt two
+             slot vectors, multiply (relin + rescale), rotate by 1 and 5,
+             a hoisted rotation sum over 4 steps with plaintexts,
+             conjugate, decrypt; every result against numpy within
+             MAX_ERR, and residue for residue against the same seeded
+             program on the CPU (the plain versions); every kernel's
+             launch count must rise;
+  4. parity  the same program at N = 2^16 on a short chain (L=7,
+             alpha=3, k=3) on the card and on the CPU, identical residues
+             after every op.
+
+Then the kernels' summary line, and last the device line.  Without a
+CUDA device, or without the repository beside it, it exits non-zero
+before printing any result.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+# Decrypted slots vs numpy.  PAPER_PARAMS has k = alpha = 12 and 30-bit
+# primes at scale 2^28, so its keyswitch noise is large: after a multiply
+# and two more keyswitches (scale 2^24) the slots are off by tens.  The
+# bound catches a wrong result, which decrypts to ~Q/scale; exactness is
+# the CPU replica's residue-for-residue check.
+MAX_ERR = 64.0
+SEED = 2026
+PEAK_BYTES = 3.35e12    # H100 SXM HBM3, bytes/s
+PEAK_OPS = 67e12        # H100 SXM 32-bit rate outside the tensor cores
+MONT_OPS = 3            # 32-bit multiplies per Montgomery product
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(fn, reps: int = 10, batches: int = 5) -> float:
+    """Median over ``batches`` of the mean time of ``reps`` back-to-back
+    calls, from CUDA events, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(batches):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        e.synchronize()
+        out.append(s.elapsed_time(e) / reps)
+    return statistics.median(out)
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def residues(rng, primes, shape, dev):
+    """Uniform residues of ``shape`` (..., len(primes), N) on ``dev``."""
+    q = torch.tensor(primes, dtype=torch.int64, device=dev)[:, None]
+    x = torch.from_numpy(rng.integers(0, 1 << 62, size=shape, dtype=np.int64))
+    return x.to(dev) % q
+
+
+# ------------------------------------------------------------------ phase 1
+def phase_build(native) -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    report = native.build_all()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "kernels": {k: v["seconds"] for k, v in report.items()},
+          "ptxas": {k: v["ptxas"][-600:] for k, v in report.items()}})
+    return smi
+
+
+# ------------------------------------------------------------------ phase 2
+def phase_kernels(P) -> dict:
+    from repro_torch.core.poly import PolyContext
+    from repro_torch.kernels.bconv.ops import BConvConsts, bconv, bconv_plain
+    from repro_torch.kernels.fused_ip.ops import IPConsts, fused_ip, fused_ip_plain
+    from repro_torch.kernels.modup.ops import (
+        ModUpDigitConsts, modup_digit, modup_digit_plain,
+    )
+    from repro_torch.kernels.ntt.ops import (
+        ntt_fwd, ntt_fwd_plain, ntt_inv, ntt_inv_plain,
+    )
+
+    dev = torch.device("cuda")
+    pc = PolyContext(P, device=dev)
+    rng = np.random.default_rng(SEED)
+    N, logn = P.N, P.logN
+    level = P.L
+    base = P.q_chain(level)
+    ext = base + P.p_primes
+    l, k, l_ext = len(base), P.k, len(ext)
+    groups = P.digit_groups(level)
+    dnum = len(groups)
+    out = {}
+
+    def record(name, kern, plain, nbytes, ops, shape):
+        got, exp = kern(), plain()
+        torch.cuda.synchronize()
+        err = int((got - exp).abs().max())
+        if not torch.equal(got, exp):
+            raise AssertionError(f"{name}: kernel != plain at {shape}, "
+                                 f"max abs err {err}")
+        b, by = bound(nbytes, ops)
+        out[name] = {"max_abs_err": err, "ms": cuda_ms(kern),
+                     "plain_ms": cuda_ms(plain, reps=2, batches=3),
+                     "bound_ms": b, "bound_by": by, "library_ms": None,
+                     "shape": shape}
+
+    # NTT: the ModDown forward transform of both accumulators, 2 x l rows
+    x = residues(rng, base, (2, l, N), dev)
+    tabs = pc.tabs
+    fwd_tables = tabs.plain_rows(base, dev, inverse=False)
+    record("ntt", lambda: ntt_fwd(x, base, tabs),
+           lambda: ntt_fwd_plain(x, *fwd_tables),
+           2 * 2 * l * N * 8 + 2 * l * N * 4,
+           MONT_OPS * 2 * l * N * (1 + logn / 2), [2, l, N])
+    # and the ModDown inverse transform of the P limbs, 2 x k rows
+    xp = residues(rng, P.p_primes, (2, k, N), dev)
+    inv_tables = tabs.plain_rows(P.p_primes, dev, inverse=True)
+    record("ntt_inverse", lambda: ntt_inv(xp, P.p_primes, tabs),
+           lambda: ntt_inv_plain(xp, *inv_tables),
+           2 * 2 * k * N * 8 + 2 * k * N * 4,
+           MONT_OPS * 2 * k * N * (1 + logn / 2), [2, k, N])
+
+    # BConv: ModDown P -> Q of both accumulators
+    c = BConvConsts(pc.rns, P.p_primes, base, dev)
+    record("bconv", lambda: bconv(xp, c),
+           lambda: bconv_plain(xp, c.qhat_inv, c.src_q, c.qhat_mod, c.dst_q),
+           2 * (k + l) * N * 8, MONT_OPS * 2 * N * k * (1 + l), [2, k, l, N])
+
+    # fused IP: a hoisted block of 4 rotations with plaintexts
+    R = 4
+    ipc = IPConsts(ext, dev)
+    dig = residues(rng, ext, (R, dnum, l_ext, N), dev)
+    evk = residues(rng, ext, (R, dnum, 2, l_ext, N), dev)
+    pt = residues(rng, ext, (R, l_ext, N), dev)
+    record("fused_ip", lambda: fused_ip(dig, evk, pt, ipc),
+           lambda: fused_ip_plain(dig, evk, pt, ipc.q),
+           (R * dnum + 2 * R * dnum + R + 2) * l_ext * N * 8,
+           MONT_OPS * l_ext * N * (2 * R * dnum + 2 * R + 2),
+           [R, dnum, l_ext, N])
+
+    # ModUp: the first digit, alpha source limbs -> the extended basis
+    mc = ModUpDigitConsts(pc.rns, tabs, groups[0], ext, dev)
+    xd = residues(rng, groups[0], (len(groups[0]), N), dev)
+    ls = len(groups[0])
+    record("modup", lambda: modup_digit(xd, mc),
+           lambda: modup_digit_plain(xd, **mc.plain()),
+           (ls + l_ext) * N * 8 + (2 * ls + 2 * l_ext) * N * 4,
+           MONT_OPS * N * (ls * (1 + logn / 2) + ls * l_ext
+                           + l_ext * (1 + logn / 2)), [ls, l_ext, N])
+    emit({"phase": "kernels", "results": out})
+    return out
+
+
+# ------------------------------------------------------------- phases 3, 4
+STEPS = [1, 2, 3, 4]
+
+
+def prepare(ctx, P, seed: int) -> dict:
+    """Set-up of the program: slot vectors, every key it uses, and the
+    hoisted block's plaintexts (encoded at the level after one rescale)."""
+    rng = np.random.default_rng(seed)
+    nh = P.num_slots
+    z1, z2 = (rng.uniform(-1, 1, nh) + 1j * rng.uniform(-1, 1, nh)
+              for _ in range(2))
+    ws = [rng.uniform(-1, 1, nh) for _ in STEPS]
+    ctx.keys.mult_key
+    ctx.keys.conj_key
+    for s in sorted(set(STEPS) | {5}):
+        ctx.keys.rot_key(s)
+    pts = [ctx.encode(w, level=P.L - 1) for w in ws]
+    return {"z1": z1, "z2": z2, "ws": ws, "pts": pts}
+
+
+def program(ctx, prep: dict, times: dict | None = None) -> dict:
+    """encrypt x2 -> multiply (relin + rescale) -> rotate by 1 and 5 ->
+    hoisted rotation sum over STEPS with plaintexts (+ rescale) ->
+    conjugate.  After the rescale the chain has L primes, so with
+    L % alpha != 0 every keyswitch here has a short last digit.
+
+    ``times`` (card only) receives each op's host seconds, synchronized."""
+    def op(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        if times is not None:
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter() - t0
+        return out
+
+    a = op("encrypt", ctx.encrypt, prep["z1"])
+    b = ctx.encrypt(prep["z2"])
+    m = op("multiply", ctx.multiply, a, b)
+    r1 = op("rotate_1", ctx.rotate, m, 1)
+    r5 = op("rotate_5", ctx.rotate, m, 5)
+    h = op("hoisted", ctx.hoisted_rotation_sum, m, STEPS, prep["pts"])
+    cj = op("conjugate", ctx.conjugate, h)
+    return {"encrypt": a, "multiply": m, "rotate_1": r1, "rotate_5": r5,
+            "hoisted": h, "conjugate": cj}
+
+
+def device_profile(fn) -> dict:
+    """Device time of the kernels ``fn`` launches, by name, from
+    torch.profiler; ``None`` fields where the profiler saw no device."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per = {}
+    for e in prof.key_averages():
+        # device-side events only: a CPU op's entry repeats the device
+        # time of the kernels it launched
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            per[e.key[:60]] = us / 1e3
+    total_ms = sum(per.values())
+    top = dict(sorted(per.items(), key=lambda kv: -kv[1])[:10])
+    return {"profiled_wall_s": wall,
+            "device_ms": total_ms if per else None,
+            "top_ms": top if per else None}
+
+
+def expected(prep: dict) -> dict:
+    zm = prep["z1"] * prep["z2"]
+    hz = sum(w * np.roll(zm, -s) for w, s in zip(prep["ws"], STEPS))
+    return {"encrypt": prep["z1"], "multiply": zm,
+            "rotate_1": np.roll(zm, -1), "rotate_5": np.roll(zm, -5),
+            "hoisted": hz, "conjugate": np.conj(hz)}
+
+
+def cpu_replica(P, seed: int, outs: dict) -> dict:
+    """The same seeded program through the plain versions on the CPU;
+    every ciphertext must equal the card's residue for residue."""
+    from repro_torch.core.ckks import CKKSContext
+
+    t0 = time.perf_counter()
+    ctx = CKKSContext(P, seed=seed, device="cpu")
+    ref = program(ctx, prepare(ctx, P, seed))
+    res = {}
+    for name, ct in outs.items():
+        r = ref[name]
+        same = (ct.level == r.level and torch.equal(ct.c0.cpu(), r.c0)
+                and torch.equal(ct.c1.cpu(), r.c1))
+        res[name] = {"level": ct.level, "identical": bool(same)}
+        if not same:
+            raise AssertionError(f"{name}: CUDA and CPU residues differ")
+    return {"ops": res, "cpu_s": time.perf_counter() - t0}
+
+
+def phase_main(P, native) -> dict:
+    from repro_torch.core.ckks import CKKSContext
+
+    t0 = time.perf_counter()
+    ctx = CKKSContext(P, seed=SEED, device="cuda")
+    prep = prepare(ctx, P, SEED)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    for name in native.LAUNCHES:
+        native.LAUNCHES[name] = 0
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    ev0.record()
+    op_s = {}
+    outs = program(ctx, prep, op_s)
+    ev1.record()
+    torch.cuda.synchronize()
+    ops_s = time.perf_counter() - t0
+    launches = dict(native.LAUNCHES)
+    prof = device_profile(lambda: program(ctx, prep))
+    if prof["device_ms"] is not None:
+        prof["device_busy_share"] = prof["device_ms"] / 1e3 / ops_s
+
+    t1 = time.perf_counter()
+    errs = {}
+    for name, want in expected(prep).items():
+        got = ctx.decrypt(outs[name])
+        if got.shape != want.shape or not np.all(np.isfinite(got)):
+            raise AssertionError(f"{name}: bad decryption {got.shape}")
+        errs[name] = float(np.abs(got - want).max())
+    decrypt_s = time.perf_counter() - t1
+    res = {"phase": "main", "params": "PAPER_PARAMS", "level_in": P.L,
+           "level_out": outs["conjugate"].level, "max_err": errs,
+           "bound": MAX_ERR, "setup_s": setup_s, "ops_s": ops_s,
+           "op_s": op_s, "ops_event_s": ev0.elapsed_time(ev1) / 1e3,
+           "profile": prof,
+           "decrypt_s": decrypt_s, "launches": launches,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    res.update(cpu_replica(P, SEED, outs))
+    emit(res)
+    bad = {k: v for k, v in errs.items() if v > MAX_ERR}
+    if bad:
+        raise AssertionError(f"decryption error above {MAX_ERR}: {bad}")
+    idle = [k for k, v in launches.items() if v == 0]
+    if idle:
+        raise AssertionError(f"kernels not launched on the main path: {idle}")
+    return res
+
+
+def phase_parity() -> None:
+    """The program at N = 2^16 on a short chain, card against CPU."""
+    from repro_torch.core.ckks import CKKSContext
+    from repro_torch.core.params import CKKSParams
+
+    P = CKKSParams(logN=16, L=7, alpha=3, k=3)
+    t0 = time.perf_counter()
+    ctx = CKKSContext(P, seed=SEED + 2, device="cuda")
+    outs = program(ctx, prepare(ctx, P, SEED + 2))
+    emit({"phase": "parity", "params": "logN=16 L=7 alpha=3 k=3",
+          **cpu_replica(P, SEED + 2, outs),
+          "seconds": time.perf_counter() - t0})
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.core.params import PAPER_PARAMS
+    from repro_torch.kernels import native
+
+    t_start = time.perf_counter()
+    smi = phase_build(native)
+    kern = phase_kernels(PAPER_PARAMS)
+    main_res = phase_main(PAPER_PARAMS, native)
+    phase_parity()
+    sources = {
+        "ntt": ("src/repro_torch/csrc/ntt.cu",
+                "src/repro/kernels/ntt/ntt.py:70"),
+        "bconv": ("src/repro_torch/csrc/bconv.cu",
+                  "src/repro/kernels/bconv/bconv.py:40"),
+        "fused_ip": ("src/repro_torch/csrc/fused_ip.cu",
+                     "src/repro/kernels/fused_ip/fused_ip.py:41"),
+        "modup": ("src/repro_torch/csrc/modup.cu",
+                  "src/repro/kernels/modup/modup.py:71"),
+    }
+    rows = []
+    for name, (src, rep) in sources.items():
+        r = kern[name]
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": rep,
+                     "launches": main_res["launches"][name],
+                     **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms")}})
+    emit({"kernels": rows})
+    print(f"card: {smi}; total {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

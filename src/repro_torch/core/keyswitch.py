@@ -1,0 +1,480 @@
+"""Batched keyswitch engine: ModUp -> IP -> ModDown on the four kernels.
+
+Counterpart of the JAX package's ``core/keyswitch.py``, following its
+``"pallas"`` branch:
+
+  * ModUp runs the fused ModUp kernel once per digit (``kernels/modup``)
+    in bit-reversed order, with ONE ``bitrev`` gather at each boundary;
+    own-limb passthrough stays outside the kernel (a gather + where);
+  * the inner product is one fused-IP launch (``kernels/fused_ip``) that
+    also sums over the rotations of a hoisted block and folds in the
+    PModUp'd plaintexts;
+  * ModDown runs batched over both accumulator polynomials: INTT of the
+    P limbs, BConv P -> Q (``kernels/bconv``), NTT (``kernels/ntt``).
+
+Each kernel wrapper runs its plain version on CPU tensors and its CUDA
+kernel on CUDA tensors, so the same bodies serve both devices.  Every
+body is written once on ``(..., l, N)`` tensors: the ``*_batched`` entry
+points pass a leading batch dimension where ``jax.vmap`` stood.
+
+There is no jit.  A plan is a cached ``KeyswitchPlan`` of constants per
+level; ``trace_counts[key]`` counts the distinct dispatch shapes seen per
+plan key (the op signature, plus the batch width for ``*_batched``
+calls), the counterpart of the reference's jit traces.  A repeat dispatch
+never raises it.  evk and plaintext tensors are per-``id(evk)`` device
+caches resolved at dispatch time.
+"""
+from __future__ import annotations
+
+from typing import TYPE_CHECKING
+
+import numpy as np
+import torch
+
+from repro_torch.core import poly
+from repro_torch.core.counters import OpCounters
+from repro_torch.errors import ModulusChainMismatchError
+from repro_torch.kernels.bconv.ops import bconv
+from repro_torch.kernels.fused_ip.ops import IPConsts, fused_ip
+from repro_torch.kernels.modup.ops import ModUpDigitConsts, modup_digit
+
+if TYPE_CHECKING:
+    from repro_torch.core.keys import EvalKey
+
+
+def ext_rows(params, level: int) -> np.ndarray:
+    """Rows of a full-basis (Q_L u P) evk tensor active at ``level``."""
+    L, k = params.L, params.k
+    return np.concatenate(
+        [np.arange(level + 1), np.arange(L + 1, L + 1 + k)]
+    )
+
+
+class KeyswitchPlan:
+    """Per-level constants: kernel tables, passthrough indices, mods."""
+
+    def __init__(self, pc: poly.PolyContext, level: int):
+        params = pc.params
+        dev = pc.device
+        self.level = level
+        self.base: tuple[int, ...] = params.q_chain(level)
+        self.ext: tuple[int, ...] = self.base + params.p_primes
+        self.groups = params.digit_groups(level)
+        self.dnum = len(self.groups)
+        self.alpha = max(len(D) for D in self.groups)
+        self.group_sizes = tuple(len(D) for D in self.groups)
+        self.l = len(self.base)
+        self.l_ext = len(self.ext)
+        self.k = len(params.p_primes)
+        self.N = params.N
+
+        self.base_mods = pc.mods(self.base)
+        self.ext_mods = pc.mods(self.ext)
+
+        # --- ModUp: one fused-kernel table set per digit ---
+        self.modup = [
+            ModUpDigitConsts(pc.rns, pc.tabs, tuple(D), self.ext, dev)
+            for D in self.groups
+        ]
+        starts = np.cumsum((0,) + self.group_sizes)
+        self.group_rows = list(zip(starts[:-1].tolist(), starts[1:].tolist()))
+
+        # Own-limb passthrough: digit j keeps its eval-domain rows.
+        own_idx = np.zeros((self.dnum, self.l_ext), dtype=np.int64)
+        own_mask = np.zeros((self.dnum, self.l_ext), dtype=bool)
+        base_pos = {p: i for i, p in enumerate(self.base)}
+        for j, D in enumerate(self.groups):
+            for r, p in enumerate(self.ext):
+                if p in D:
+                    own_idx[j, r] = base_pos[p]
+                    own_mask[j, r] = True
+        self.own_idx = torch.from_numpy(own_idx).to(dev)
+        self.own_mask = torch.from_numpy(own_mask).to(dev)
+
+        # --- IP and ModDown (P -> Q_level) constants ---
+        self.ip = IPConsts(self.ext, dev)
+        self.md_bconv = pc.bconv_consts(params.p_primes, self.base)
+        self.pinv = pc.tensor(pc.rns.p_inv_mod_q(level))
+
+
+class KeyswitchEngine:
+    """Batched keyswitch over a ``PolyContext``.
+
+    One plan per level; evk tensors stacked and level-sliced once per key
+    and cached."""
+
+    def __init__(self, pc: poly.PolyContext,
+                 counters: OpCounters | None = None):
+        self.pc = pc
+        self.params = pc.params
+        self.counters = counters if counters is not None else OpCounters()
+        self._plans: dict[int, KeyswitchPlan] = {}
+        self._seen: set[tuple] = set()
+        self._evk_full: dict[int, tuple] = {}     # id(evk) -> (evk, stacked)
+        self._evk_level: dict[tuple, torch.Tensor] = {}
+        self._evk_group: dict[tuple, torch.Tensor] = {}
+        self._perm_cache: dict[tuple, torch.Tensor] = {}
+        self.trace_counts: dict[tuple, int] = {}
+
+    # ------------------------- op counting -----------------------------
+    def _note_keyswitch(self, plan: KeyswitchPlan, m: int = 1) -> None:
+        c = self.counters
+        c.note_modup(plan.l, plan.l_ext, plan.group_sizes, plan.N, m)
+        c.note_ip(plan.dnum, plan.l_ext, plan.N, 1, m)
+        c.note_moddown(plan.l, plan.k, plan.N, m)
+        c.keyswitch += m
+
+    def _note_hoisted(self, plan: KeyswitchPlan, n_rot: int,
+                      with_modup: bool, m: int = 1) -> None:
+        c = self.counters
+        if with_modup:
+            c.note_modup(plan.l, plan.l_ext, plan.group_sizes, plan.N, m)
+        c.note_ip(plan.dnum, plan.l_ext, plan.N, n_rot, m)
+        c.note_moddown(plan.l, plan.k, plan.N, m)
+        c.keyswitch += m * n_rot
+        c.rotation += m * n_rot
+        c.hoisted_blocks += m
+
+    def _note_relin(self, plan: KeyswitchPlan, with_modup: bool,
+                    n: int = 1, m: int = 1) -> None:
+        """n relinearizations of m ciphertexts sharing one ModDown each
+        (n > 1: a merged multi-relin block — ONE ModDown total)."""
+        c = self.counters
+        if with_modup:
+            c.note_modup(plan.l, plan.l_ext, plan.group_sizes, plan.N,
+                         m * n)
+        c.note_ip(plan.dnum, plan.l_ext, plan.N, n, m)
+        c.note_moddown(plan.l, plan.k, plan.N, m)
+        c.keyswitch += m * n
+        c.relin += m * n
+        if n > 1:
+            c.relin_blocks += m
+
+    def _note_multi(self, plan: KeyswitchPlan, n: int, m: int = 1) -> None:
+        c = self.counters
+        c.note_ip(plan.dnum, plan.l_ext, plan.N, n, m)
+        c.note_moddown(plan.l, plan.k, plan.N, m)
+        c.keyswitch += m * n
+        c.rotation += m * n
+
+    # ------------------------- plans -----------------------------------
+    def _plan(self, level: int) -> KeyswitchPlan:
+        if level not in self._plans:
+            self._plans[level] = KeyswitchPlan(self.pc, level)
+        return self._plans[level]
+
+    def _dispatch(self, key: tuple, width: int | None = None) -> None:
+        """Count the first dispatch of each (plan key, batch width)."""
+        if (key, width) not in self._seen:
+            self._seen.add((key, width))
+            self.trace_counts[key] = self.trace_counts.get(key, 0) + 1
+
+    # ------------------------- evk stacking ----------------------------
+    def _admit_evk(self, evk: EvalKey) -> None:
+        """Cache-admission guard: an evk generated under different
+        ``CKKSParams`` (wrong digit count or extended-basis shape) is
+        rejected here, at the cache boundary.  Runs only on cache miss."""
+        p = self.params
+        want_digits = p.dnum
+        want_shape = (2, p.L + 1 + p.k, p.N)
+        if len(evk.digits) != want_digits:
+            raise ModulusChainMismatchError(
+                "evk digit count disagrees with the engine's params",
+                hint="the key was generated under different CKKSParams; "
+                     "regenerate it with this context's KeyChain",
+                evk_digits=len(evk.digits), dnum=want_digits)
+        got = tuple(evk.digits[0].shape)
+        if got != want_shape:
+            raise ModulusChainMismatchError(
+                "evk digit shape disagrees with the extended basis",
+                hint="the key was generated under a different modulus "
+                     "chain; regenerate it with this context's KeyChain",
+                evk_shape=got, expected=want_shape)
+
+    def _evk_stacked(self, evk: EvalKey) -> torch.Tensor:
+        """(dnum_full, 2, L+1+k, N) int64, cached per key object."""
+        key = id(evk)
+        if key not in self._evk_full:
+            self._admit_evk(evk)
+            self._evk_full[key] = (evk, torch.stack(evk.digits))
+        return self._evk_full[key][1]
+
+    def evk_tensor(self, evk: EvalKey, level: int) -> torch.Tensor:
+        """Level-sliced evk tensor (dnum, 2, l_ext, N).  Cached."""
+        key = (id(evk), level)
+        if key not in self._evk_level:
+            plan = self._plan(level)
+            full = self._evk_stacked(evk)
+            rows = torch.from_numpy(ext_rows(self.params, level)).to(
+                full.device)
+            self._evk_level[key] = full[: plan.dnum][:, :, rows].contiguous()
+        return self._evk_level[key]
+
+    def evk_group_tensor(self, evks: list[EvalKey],
+                         level: int) -> torch.Tensor:
+        """(R, dnum, 2, l_ext, N) stack for a hoisted rotation group.
+        Bounded (FIFO eviction) — rotation groups vary across programs."""
+        key = (tuple(id(k) for k in evks), level)
+        if key not in self._evk_group:
+            while len(self._evk_group) >= 64:
+                self._evk_group.pop(next(iter(self._evk_group)))
+            self._evk_group[key] = torch.stack(
+                [self.evk_tensor(k, level) for k in evks]
+            )
+        return self._evk_group[key]
+
+    def perm_tensor(self, galois_list: list[int]) -> torch.Tensor:
+        """(R, N) eval-domain automorphism gather indices."""
+        key = tuple(galois_list)
+        if key not in self._perm_cache:
+            self._perm_cache[key] = self.pc.tensor(np.stack(
+                [self.pc.rns.autom_eval_perm(g) for g in galois_list]
+            ))
+        return self._perm_cache[key]
+
+    # ------------------------- bodies on (..., l, N) --------------------
+    def _modup(self, a, plan: KeyswitchPlan):
+        """(..., l, N) eval -> (..., dnum, l_ext, N) eval, all digits."""
+        x = a[..., self.pc.bitrev]
+        digs = [
+            modup_digit(x[..., r0:r1, :].contiguous(), c)
+            for (r0, r1), c in zip(plan.group_rows, plan.modup)
+        ]
+        conv = torch.stack(digs, dim=-3)[..., self.pc.bitrev]
+        own = a[..., plan.own_idx, :]                  # (..., dnum, l_ext, N)
+        return torch.where(plan.own_mask[:, :, None], own, conv)
+
+    def _ip(self, digits, evk, plan: KeyswitchPlan):
+        """(..., dnum, l_ext, N) x (dnum, 2, l_ext, N) -> (..., 2, l_ext, N)."""
+        return fused_ip(digits.unsqueeze(-4), evk[None], None, plan.ip)
+
+    def _moddown2(self, acc, plan: KeyswitchPlan):
+        """ModDown of both accumulators: (..., 2, l_ext, N) -> (..., 2, l, N)."""
+        xq, xp = acc[..., : plan.l, :], acc[..., plan.l :, :]
+        xpc = poly.intt(xp, self.params.p_primes, self.pc)
+        conv = poly.ntt(bconv(xpc, plan.md_bconv), plan.base, self.pc)
+        bm = plan.base_mods[:, None]
+        diff = (xq + bm - conv) % bm
+        return diff * plan.pinv[:, None] % bm
+
+    def _ks_body(self, a, evk, plan: KeyswitchPlan):
+        d = self._moddown2(self._ip(self._modup(a, plan), evk, plan), plan)
+        return d[..., 0, :, :], d[..., 1, :, :]
+
+    def _galois_body(self, c0, c1, perm, evk, plan: KeyswitchPlan):
+        d0, d1 = self._ks_body(c1[..., perm], evk, plan)
+        bm = plan.base_mods[:, None]
+        return (c0[..., perm] + d0) % bm, d1
+
+    def _hoist_core(self, plan: KeyswitchPlan, c0, digits, perms, evk_all,
+                    pm_ext, pm_base):
+        """Hoisted-rotation-sum body AFTER ModUp: rotate digits, one fused
+        IP over every rotation, one batched ModDown."""
+        # One gather rotates ALL digits for ALL rotations.
+        d_rot = digits[..., perms].movedim(-2, -4).contiguous()
+        acc = fused_ip(d_rot, evk_all, pm_ext, plan.ip)
+        bm = plan.base_mods[:, None]
+        c0r = c0[..., perms].movedim(-2, -3)           # (..., R, l, N)
+        if pm_base is not None:
+            c0r = c0r * pm_base % bm
+        base0 = c0r.sum(dim=-3) % bm
+        d = self._moddown2(acc, plan)
+        return (base0 + d[..., 0, :, :]) % bm, d[..., 1, :, :]
+
+    def _multi_core(self, plan: KeyswitchPlan, c0s, digits, perms, evk_all):
+        """Multi-anchor body: c0s (..., n, l, N), digits (..., n, dnum,
+        l_ext, N); rotate each term by ITS perm, IP against ITS evk, sum
+        in the extended basis, close with ONE ModDown."""
+        p4 = perms[:, None, None, :].expand(digits.shape)
+        d_rot = torch.gather(digits, -1, p4)
+        acc = fused_ip(d_rot, evk_all, None, plan.ip)
+        bm = plan.base_mods[:, None]
+        c0r = torch.gather(c0s, -1, perms[:, None, :].expand(c0s.shape))
+        base0 = c0r.sum(dim=-3) % bm
+        d = self._moddown2(acc, plan)
+        return (base0 + d[..., 0, :, :]) % bm, d[..., 1, :, :]
+
+    def _relin_core(self, plan: KeyswitchPlan, d0, d1, digits, evk):
+        """IP + ModDown of relin digits, folded into (d0, d1)."""
+        d = self._moddown2(self._ip(digits, evk, plan), plan)
+        bm = plan.base_mods[:, None]
+        return (d0 + d[..., 0, :, :]) % bm, (d1 + d[..., 1, :, :]) % bm
+
+    def _multi_relin_core(self, plan: KeyswitchPlan, d0s, d1s, digits, evk):
+        """Multi-relin body: every term's IP against the SHARED mult key
+        sums in the extended basis; ONE ModDown closes the sum."""
+        acc = fused_ip(digits, evk[None], None, plan.ip)
+        bm = plan.base_mods[:, None]
+        base0 = d0s.sum(dim=-3) % bm
+        base1 = d1s.sum(dim=-3) % bm
+        d = self._moddown2(acc, plan)
+        return (base0 + d[..., 0, :, :]) % bm, (base1 + d[..., 1, :, :]) % bm
+
+    # ------------------------- public API ------------------------------
+    def keyswitch(self, a, evk: EvalKey, level: int):
+        """ModUp -> IP -> ModDown of poly ``a``: (d0, d1) under Q_level."""
+        plan = self._plan(level)
+        self._note_keyswitch(plan)
+        self._dispatch(("keyswitch", level))
+        return self._ks_body(a, self.evk_tensor(evk, level), plan)
+
+    def apply_galois(self, c0, c1, galois: int, evk: EvalKey, level: int):
+        """Fused rotate: eval-domain automorphism + keyswitch of c1."""
+        plan = self._plan(level)
+        self._note_keyswitch(plan)
+        self.counters.rotation += 1
+        self._dispatch(("galois", level))
+        perm = self.perm_tensor([galois])[0]
+        return self._galois_body(c0, c1, perm, self.evk_tensor(evk, level),
+                                 plan)
+
+    def modup(self, a, level: int):
+        """Standalone ModUp of poly ``a`` -> (dnum, l_ext, N) digits,
+        shareable across hoisted blocks anchored on the same ciphertext."""
+        plan = self._plan(level)
+        self.counters.note_modup(plan.l, plan.l_ext, plan.group_sizes,
+                                 plan.N)
+        self._dispatch(("modup", level))
+        return self._modup(a, plan)
+
+    def hoisted_rotation_sum(self, c0, c1, galois_list: list[int],
+                             evks: list[EvalKey], level: int,
+                             pm_ext=None, pm_base=None, digits=None):
+        """sum_r [pt_r *] Rot(ct, r): ONE ModUp, ONE (batched) ModDown.
+
+        pm_ext/pm_base: (R, l_ext, N) / (R, l, N) PModUp'd plaintexts.
+        ``digits``: pre-computed ModUp digits from :meth:`modup` — the
+        internal ModUp is skipped (bit-exact with the monolithic path).
+        """
+        plan = self._plan(level)
+        n_rot = len(galois_list)
+        self._note_hoisted(plan, n_rot, digits is None)
+        with_pt = pm_base is not None
+        name = "hoisted" if digits is None else "hoisted_digits"
+        self._dispatch((name, level, n_rot, with_pt))
+        if digits is None:
+            digits = self._modup(c1, plan)
+        return self._hoist_core(
+            plan, c0, digits, self.perm_tensor(galois_list),
+            self.evk_group_tensor(evks, level), pm_ext, pm_base)
+
+    def multi_hoisted_rotation_sum(self, c0s, digits_list, galois_list,
+                                   evks, level: int):
+        """sum_i Rot_{g_i}(ct_i) over DIFFERENT anchor ciphertexts with
+        ONE ModDown: per-term IPs accumulate in the extended basis; a
+        single batched ModDown closes the sum."""
+        plan = self._plan(level)
+        n = len(galois_list)
+        self._note_multi(plan, n)
+        self._dispatch(("multi_hoisted", level, n))
+        return self._multi_core(
+            plan, torch.stack(c0s), torch.stack(digits_list),
+            self.perm_tensor(galois_list), self.evk_group_tensor(evks, level))
+
+    def relin(self, d0, d1, d2, evk: EvalKey, level: int, digits=None):
+        """Relinearize a degree-2 ciphertext: (d0, d1) + KS(d2); the ModUp
+        is skipped when pre-computed ``digits`` are passed."""
+        plan = self._plan(level)
+        self._note_relin(plan, digits is None)
+        self._dispatch(("relin", level, digits is not None))
+        if digits is None:
+            digits = self._modup(d2, plan)
+        return self._relin_core(plan, d0, d1, digits,
+                                self.evk_tensor(evk, level))
+
+    def multi_relin_sum(self, d0s, d1s, digits_list, evk: EvalKey,
+                        level: int):
+        """sum_i [(d0_i, d1_i) + KS(d2_i)] with ONE ModDown; digits are
+        per-term pre-computed ModUps of the d2 components."""
+        plan = self._plan(level)
+        n = len(digits_list)
+        self._note_relin(plan, with_modup=False, n=n)
+        self._dispatch(("multi_relin", level, n))
+        return self._multi_relin_core(
+            plan, torch.stack(d0s), torch.stack(d1s),
+            torch.stack(digits_list), self.evk_tensor(evk, level))
+
+    # -------- batched public API (leading ct axis) ----------------------
+    def keyswitch_batched(self, ab, evk: EvalKey, level: int):
+        """Batched keyswitch of (B, l, N) polys."""
+        plan = self._plan(level)
+        m = int(ab.shape[0])
+        self._note_keyswitch(plan, m=m)
+        self._dispatch(("keyswitch_b", level), m)
+        return self._ks_body(ab, self.evk_tensor(evk, level), plan)
+
+    def apply_galois_batched(self, c0b, c1b, galois: int, evk: EvalKey,
+                             level: int):
+        plan = self._plan(level)
+        m = int(c0b.shape[0])
+        self._note_keyswitch(plan, m=m)
+        self.counters.rotation += m
+        self._dispatch(("galois_b", level), m)
+        perm = self.perm_tensor([galois])[0]
+        return self._galois_body(c0b, c1b, perm,
+                                 self.evk_tensor(evk, level), plan)
+
+    def modup_batched(self, ab, level: int):
+        plan = self._plan(level)
+        m = int(ab.shape[0])
+        self.counters.note_modup(plan.l, plan.l_ext, plan.group_sizes,
+                                 plan.N, m=m)
+        self._dispatch(("modup_b", level), m)
+        return self._modup(ab, plan)
+
+    def multi_hoisted_rotation_sum_batched(self, c0s, digits_list,
+                                           galois_list, evks, level: int):
+        """Batched multi-anchor accumulation: per-term (B, l, N) c0s and
+        (B, dnum, l_ext, N) digits."""
+        plan = self._plan(level)
+        n = len(galois_list)
+        m = int(c0s[0].shape[0])
+        self._note_multi(plan, n, m)
+        self._dispatch(("multi_hoisted_b", level, n), m)
+        return self._multi_core(
+            plan, torch.stack(c0s, dim=1), torch.stack(digits_list, dim=1),
+            self.perm_tensor(galois_list), self.evk_group_tensor(evks, level))
+
+    def relin_batched(self, d0b, d1b, d2b, evk: EvalKey, level: int,
+                      digits=None):
+        """Batched relinearization of (B, l, N) degree-2 components
+        (``digits``: (B, dnum, l_ext, N))."""
+        plan = self._plan(level)
+        m = int(d0b.shape[0])
+        self._note_relin(plan, digits is None, m=m)
+        self._dispatch(("relin_b", level, digits is not None), m)
+        if digits is None:
+            digits = self._modup(d2b, plan)
+        return self._relin_core(plan, d0b, d1b, digits,
+                                self.evk_tensor(evk, level))
+
+    def multi_relin_sum_batched(self, d0s, d1s, digits_list,
+                                evk: EvalKey, level: int):
+        """Batched multi-relin accumulation: per-term (B, l, N) d0/d1 and
+        (B, dnum, l_ext, N) digits."""
+        plan = self._plan(level)
+        n = len(digits_list)
+        m = int(d0s[0].shape[0])
+        self._note_relin(plan, with_modup=False, n=n, m=m)
+        self._dispatch(("multi_relin_b", level, n), m)
+        return self._multi_relin_core(
+            plan, torch.stack(d0s, dim=1), torch.stack(d1s, dim=1),
+            torch.stack(digits_list, dim=1), self.evk_tensor(evk, level))
+
+    def hoisted_rotation_sum_batched(self, c0b, c1b, galois_list,
+                                     evks, level: int, pm_ext=None,
+                                     pm_base=None, digits=None):
+        """(B, l, N) c0/c1 (or (B, dnum, l_ext, N) pre-computed
+        ``digits``), shared perm/evk/plaintext tensors."""
+        plan = self._plan(level)
+        n_rot = len(galois_list)
+        m = int(c0b.shape[0])
+        self._note_hoisted(plan, n_rot, digits is None, m=m)
+        with_pt = pm_base is not None
+        self._dispatch(("hoisted_b", level, n_rot, with_pt,
+                        digits is not None), m)
+        if digits is None:
+            digits = self._modup(c1b, plan)
+        return self._hoist_core(
+            plan, c0b, digits, self.perm_tensor(galois_list),
+            self.evk_group_tensor(evks, level), pm_ext, pm_base)

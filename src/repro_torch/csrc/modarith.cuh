@@ -1,0 +1,35 @@
+// 32-bit modular arithmetic shared by every kernel of the port.
+//
+// Replaces the JAX package's kernels/modops.py helpers (mul32_split,
+// mont_redc, mont_mul, add_mod, sub_mod).  The TPU builds 64-bit products
+// from 16-bit partials because it has no wide multiply; Hopper has one, so
+// mont_mul is a 64-bit product plus one Montgomery reduction (R = 2^32).
+// Valid for odd q < 2^31; every function returns a fully reduced residue,
+// so any exact reduction elsewhere gives the same value.  No 64-bit `%`
+// (emulated, slow) appears in device code.
+#pragma once
+#include <cstdint>
+
+namespace he2 {
+
+// a * b * 2^-32 mod q for a < 2^32, b < q.  With b in Montgomery form
+// (b * 2^32 mod q) this is the plain product a * b mod q.
+__device__ __forceinline__ uint32_t mont_mul(uint32_t a, uint32_t b,
+                                             uint32_t q, uint32_t qinv_neg) {
+  const uint64_t t = static_cast<uint64_t>(a) * b;          // < 2^62
+  const uint32_t m = static_cast<uint32_t>(t) * qinv_neg;    // t * -q^-1 mod 2^32
+  const uint32_t r =
+      static_cast<uint32_t>((t + static_cast<uint64_t>(m) * q) >> 32);  // < 2q
+  return r >= q ? r - q : r;
+}
+
+__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b, uint32_t q) {
+  const uint32_t s = a + b;  // < 2q < 2^32
+  return s >= q ? s - q : s;
+}
+
+__device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b, uint32_t q) {
+  return a >= b ? a - b : a + q - b;
+}
+
+}  // namespace he2
