@@ -11,14 +11,17 @@ exits non-zero):
   2. kernels each kernel at the paper shapes (logN=16, level 35: l=36,
              k=12, l_ext=48, dnum=3, alpha=12) against its plain PyTorch
              version on the same inputs, exact integer equality; median
-             kernel and plain times from CUDA events;
+             kernel and plain times from CUDA events, the CUDA launches
+             one wrapper call makes and the cluster size it picks; the
+             NTT in both directions, ModUp over all digits (``modup_all``);
   3. main    ``CKKSContext(PAPER_PARAMS, device="cuda")``: encrypt two
              slot vectors, multiply (relin + rescale), rotate by 1 and 5,
              a hoisted rotation sum over 4 steps with plaintexts,
              conjugate, decrypt; every result against numpy within
              MAX_ERR, and residue for residue against the same seeded
              program on the CPU (the plain versions); every kernel's
-             launch count must rise;
+             launch count must rise, ModUp's by one per keyswitch that
+             needs one (MODUPS);
   4. parity  the same program at N = 2^16 on a short chain (L=7,
              alpha=3, k=3) on the card and on the CPU, identical residues
              after every op.
@@ -51,21 +54,31 @@ SEED = 2026
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3, bytes/s
 PEAK_OPS = 67e12        # H100 SXM 32-bit rate outside the tensor cores
 MONT_OPS = 3            # 32-bit multiplies per Montgomery product
+SPIN_CYCLES = 20_000_000  # ~10 ms of the card's clock: covers 10 enqueues
+# ModUps of ``program``: the multiply's relinearization, two rotations,
+# the hoisted sum (one for all its rotations) and the conjugation
+MODUPS = 5
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, reps: int = 10, batches: int = 5) -> float:
+def cuda_ms(fn, reps: int = 10, batches: int = 5, hide_host: bool = True
+            ) -> float:
     """Median over ``batches`` of the mean time of ``reps`` back-to-back
-    calls, from CUDA events, after a warm-up."""
+    calls, from CUDA events, after a warm-up.  With ``hide_host`` the
+    stream first runs a spin kernel long enough for the host to enqueue
+    all ``reps`` calls, so that a wrapper's host time (tens of
+    microseconds) does not stand in for a shorter kernel's device time."""
     fn()
     torch.cuda.synchronize()
     out = []
     for _ in range(batches):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
+        if hide_host:
+            torch.cuda._sleep(SPIN_CYCLES)
         s.record()
         for _ in range(reps):
             fn()
@@ -108,11 +121,9 @@ def phase_kernels(P) -> dict:
     from repro_torch.core.poly import PolyContext
     from repro_torch.kernels.bconv.ops import BConvConsts, bconv, bconv_plain
     from repro_torch.kernels.fused_ip.ops import IPConsts, fused_ip, fused_ip_plain
-    from repro_torch.kernels.modup.ops import (
-        ModUpDigitConsts, modup_digit, modup_digit_plain,
-    )
+    from repro_torch.kernels.modup.ops import ModUpConsts, modup, modup_plain
     from repro_torch.kernels.ntt.ops import (
-        ntt_fwd, ntt_fwd_plain, ntt_inv, ntt_inv_plain,
+        cluster_bits, ntt_fwd, ntt_fwd_plain, ntt_inv, ntt_inv_plain, sm_count,
     )
 
     dev = torch.device("cuda")
@@ -125,9 +136,11 @@ def phase_kernels(P) -> dict:
     l, k, l_ext = len(base), P.k, len(ext)
     groups = P.digit_groups(level)
     dnum = len(groups)
+    sms = sm_count(dev)
     out = {}
 
-    def record(name, kern, plain, nbytes, ops, shape):
+    def record(name, kern, plain, nbytes, ops, shape, cuda_launches,
+               cluster):
         got, exp = kern(), plain()
         torch.cuda.synchronize()
         err = int((got - exp).abs().max())
@@ -136,9 +149,11 @@ def phase_kernels(P) -> dict:
                                  f"max abs err {err}")
         b, by = bound(nbytes, ops)
         out[name] = {"max_abs_err": err, "ms": cuda_ms(kern),
-                     "plain_ms": cuda_ms(plain, reps=2, batches=3),
+                     "plain_ms": cuda_ms(plain, reps=2, batches=3,
+                                         hide_host=False),
                      "bound_ms": b, "bound_by": by, "library_ms": None,
-                     "shape": shape}
+                     "shape": shape, "cuda_launches": cuda_launches,
+                     "cluster": cluster}
 
     # NTT: the ModDown forward transform of both accumulators, 2 x l rows
     x = residues(rng, base, (2, l, N), dev)
@@ -147,20 +162,23 @@ def phase_kernels(P) -> dict:
     record("ntt", lambda: ntt_fwd(x, base, tabs),
            lambda: ntt_fwd_plain(x, *fwd_tables),
            2 * 2 * l * N * 8 + 2 * l * N * 4,
-           MONT_OPS * 2 * l * N * (1 + logn / 2), [2, l, N])
+           MONT_OPS * 2 * l * N * (1 + logn / 2), [2, l, N], 1,
+           1 << cluster_bits(logn, 2 * l, sms))
     # and the ModDown inverse transform of the P limbs, 2 x k rows
     xp = residues(rng, P.p_primes, (2, k, N), dev)
     inv_tables = tabs.plain_rows(P.p_primes, dev, inverse=True)
     record("ntt_inverse", lambda: ntt_inv(xp, P.p_primes, tabs),
            lambda: ntt_inv_plain(xp, *inv_tables),
            2 * 2 * k * N * 8 + 2 * k * N * 4,
-           MONT_OPS * 2 * k * N * (1 + logn / 2), [2, k, N])
+           MONT_OPS * 2 * k * N * (1 + logn / 2), [2, k, N], 1,
+           1 << cluster_bits(logn, 2 * k, sms))
 
     # BConv: ModDown P -> Q of both accumulators
     c = BConvConsts(pc.rns, P.p_primes, base, dev)
     record("bconv", lambda: bconv(xp, c),
            lambda: bconv_plain(xp, c.qhat_inv, c.src_q, c.qhat_mod, c.dst_q),
-           2 * (k + l) * N * 8, MONT_OPS * 2 * N * k * (1 + l), [2, k, l, N])
+           2 * (k + l) * N * 8, MONT_OPS * 2 * N * k * (1 + l), [2, k, l, N],
+           1, None)
 
     # fused IP: a hoisted block of 4 rotations with plaintexts
     R = 4
@@ -172,17 +190,22 @@ def phase_kernels(P) -> dict:
            lambda: fused_ip_plain(dig, evk, pt, ipc.q),
            (R * dnum + 2 * R * dnum + R + 2) * l_ext * N * 8,
            MONT_OPS * l_ext * N * (2 * R * dnum + 2 * R + 2),
-           [R, dnum, l_ext, N])
+           [R, dnum, l_ext, N], 1, None)
 
-    # ModUp: the first digit, alpha source limbs -> the extended basis
-    mc = ModUpDigitConsts(pc.rns, tabs, groups[0], ext, dev)
-    xd = residues(rng, groups[0], (len(groups[0]), N), dev)
-    ls = len(groups[0])
-    record("modup", lambda: modup_digit(xd, mc),
-           lambda: modup_digit_plain(xd, **mc.plain()),
-           (ls + l_ext) * N * 8 + (2 * ls + 2 * l_ext) * N * 4,
-           MONT_OPS * N * (ls * (1 + logn / 2) + ls * l_ext
-                           + l_ext * (1 + logn / 2)), [ls, l_ext, N])
+    # ModUp of every digit of one level-35 polynomial (B = 1): int64 in
+    # and out, the inverse tables of the l source limbs and the forward
+    # tables of the l_ext destination limbs, each read once
+    mc = ModUpConsts(pc.rns, tabs, groups, base, ext, dev)
+    xm = residues(rng, base, (l, N), dev)
+    sizes = [len(D) for D in groups]
+    record("modup_all", lambda: modup(xm, mc), lambda: modup_plain(xm, mc),
+           l * N * 8 + dnum * l_ext * N * 8 + 2 * l * N * 4
+           + 2 * l_ext * N * 4,
+           MONT_OPS * N * (l * (1 + logn / 2) + sum(
+               (l_ext - ls) * (ls + 1 + logn / 2) for ls in sizes)),
+           [l, dnum, l_ext, N], 2,
+           [1 << cluster_bits(logn, l, sms),
+            1 << cluster_bits(logn, dnum * l_ext, sms)])
     emit({"phase": "kernels", "results": out})
     return out
 
@@ -296,8 +319,7 @@ def phase_main(P, native) -> dict:
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    for name in native.LAUNCHES:
-        native.LAUNCHES[name] = 0
+    native.reset_counts()
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -308,6 +330,8 @@ def phase_main(P, native) -> dict:
     torch.cuda.synchronize()
     ops_s = time.perf_counter() - t0
     launches = dict(native.LAUNCHES)
+    calls = {f"{fn} {list(shape)}": v
+             for (fn, shape), v in sorted(native.CALLS.items())}
     prof = device_profile(lambda: program(ctx, prep))
     if prof["device_ms"] is not None:
         prof["device_busy_share"] = prof["device_ms"] / 1e3 / ops_s
@@ -325,7 +349,7 @@ def phase_main(P, native) -> dict:
            "bound": MAX_ERR, "setup_s": setup_s, "ops_s": ops_s,
            "op_s": op_s, "ops_event_s": ev0.elapsed_time(ev1) / 1e3,
            "profile": prof,
-           "decrypt_s": decrypt_s, "launches": launches,
+           "decrypt_s": decrypt_s, "launches": launches, "calls": calls,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     res.update(cpu_replica(P, SEED, outs))
     emit(res)
@@ -335,6 +359,13 @@ def phase_main(P, native) -> dict:
     idle = [k for k, v in launches.items() if v == 0]
     if idle:
         raise AssertionError(f"kernels not launched on the main path: {idle}")
+    if not any(c.startswith("ntt_inverse ") for c in calls) or not any(
+            c.startswith("ntt_forward ") for c in calls):
+        raise AssertionError("an NTT direction was not launched on the "
+                             "main path")
+    if launches["modup"] != MODUPS:
+        raise AssertionError(f"{launches['modup']} ModUp calls, expected "
+                             f"{MODUPS}: one per keyswitch that needs one")
     return res
 
 
@@ -364,25 +395,32 @@ def main() -> int:
     kern = phase_kernels(PAPER_PARAMS)
     main_res = phase_main(PAPER_PARAMS, native)
     phase_parity()
+    ntt_src = ("src/repro_torch/csrc/ntt.cu", "src/repro/kernels/ntt/ntt.py:70")
+    calls = main_res["calls"]
     sources = {
-        "ntt": ("src/repro_torch/csrc/ntt.cu",
-                "src/repro/kernels/ntt/ntt.py:70"),
+        "ntt": (*ntt_src, sum(v for c, v in calls.items()
+                              if c.startswith("ntt_forward "))),
+        "ntt_inverse": (*ntt_src, sum(v for c, v in calls.items()
+                                      if c.startswith("ntt_inverse "))),
         "bconv": ("src/repro_torch/csrc/bconv.cu",
-                  "src/repro/kernels/bconv/bconv.py:40"),
+                  "src/repro/kernels/bconv/bconv.py:40",
+                  main_res["launches"]["bconv"]),
         "fused_ip": ("src/repro_torch/csrc/fused_ip.cu",
-                     "src/repro/kernels/fused_ip/fused_ip.py:41"),
-        "modup": ("src/repro_torch/csrc/modup.cu",
-                  "src/repro/kernels/modup/modup.py:71"),
+                     "src/repro/kernels/fused_ip/fused_ip.py:41",
+                     main_res["launches"]["fused_ip"]),
+        "modup_all": ("src/repro_torch/csrc/modup.cu",
+                      "src/repro/kernels/modup/modup.py:71",
+                      main_res["launches"]["modup"]),
     }
     rows = []
-    for name, (src, rep) in sources.items():
+    for name, (src, rep, launches) in sources.items():
         r = kern[name]
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": rep,
-                     "launches": main_res["launches"][name],
+                     "replaces": rep, "launches": launches,
                      **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
-                                          "library_ms")}})
+                                          "library_ms", "cuda_launches",
+                                          "cluster")}})
     emit({"kernels": rows})
     print(f"card: {smi}; total {time.perf_counter() - t_start:.1f} s",
           flush=True)

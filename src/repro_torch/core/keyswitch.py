@@ -3,9 +3,8 @@
 Counterpart of the JAX package's ``core/keyswitch.py``, following its
 ``"pallas"`` branch:
 
-  * ModUp runs the fused ModUp kernel once per digit (``kernels/modup``)
-    in bit-reversed order, with ONE ``bitrev`` gather at each boundary;
-    own-limb passthrough stays outside the kernel (a gather + where);
+  * ModUp is one call of the all-digit ModUp kernel (``kernels/modup``),
+    natural eval order in and out, own limbs passed through inside it;
   * the inner product is one fused-IP launch (``kernels/fused_ip``) that
     also sums over the rotations of a hoisted block and folds in the
     PModUp'd plaintexts;
@@ -36,7 +35,7 @@ from repro_torch.core.counters import OpCounters
 from repro_torch.errors import ModulusChainMismatchError
 from repro_torch.kernels.bconv.ops import bconv
 from repro_torch.kernels.fused_ip.ops import IPConsts, fused_ip
-from repro_torch.kernels.modup.ops import ModUpDigitConsts, modup_digit
+from repro_torch.kernels.modup.ops import ModUpConsts, modup
 
 if TYPE_CHECKING:
     from repro_torch.core.keys import EvalKey
@@ -51,7 +50,7 @@ def ext_rows(params, level: int) -> np.ndarray:
 
 
 class KeyswitchPlan:
-    """Per-level constants: kernel tables, passthrough indices, mods."""
+    """Per-level constants: kernel tables and mods."""
 
     def __init__(self, pc: poly.PolyContext, level: int):
         params = pc.params
@@ -71,25 +70,9 @@ class KeyswitchPlan:
         self.base_mods = pc.mods(self.base)
         self.ext_mods = pc.mods(self.ext)
 
-        # --- ModUp: one fused-kernel table set per digit ---
-        self.modup = [
-            ModUpDigitConsts(pc.rns, pc.tabs, tuple(D), self.ext, dev)
-            for D in self.groups
-        ]
-        starts = np.cumsum((0,) + self.group_sizes)
-        self.group_rows = list(zip(starts[:-1].tolist(), starts[1:].tolist()))
-
-        # Own-limb passthrough: digit j keeps its eval-domain rows.
-        own_idx = np.zeros((self.dnum, self.l_ext), dtype=np.int64)
-        own_mask = np.zeros((self.dnum, self.l_ext), dtype=bool)
-        base_pos = {p: i for i, p in enumerate(self.base)}
-        for j, D in enumerate(self.groups):
-            for r, p in enumerate(self.ext):
-                if p in D:
-                    own_idx[j, r] = base_pos[p]
-                    own_mask[j, r] = True
-        self.own_idx = torch.from_numpy(own_idx).to(dev)
-        self.own_mask = torch.from_numpy(own_mask).to(dev)
+        # --- ModUp: every digit, own limbs passed through ---
+        self.modup = ModUpConsts(pc.rns, pc.tabs, self.groups, self.base,
+                                 self.ext, dev)
 
         # --- IP and ModDown (P -> Q_level) constants ---
         self.ip = IPConsts(self.ext, dev)
@@ -235,14 +218,7 @@ class KeyswitchEngine:
     # ------------------------- bodies on (..., l, N) --------------------
     def _modup(self, a, plan: KeyswitchPlan):
         """(..., l, N) eval -> (..., dnum, l_ext, N) eval, all digits."""
-        x = a[..., self.pc.bitrev]
-        digs = [
-            modup_digit(x[..., r0:r1, :].contiguous(), c)
-            for (r0, r1), c in zip(plan.group_rows, plan.modup)
-        ]
-        conv = torch.stack(digs, dim=-3)[..., self.pc.bitrev]
-        own = a[..., plan.own_idx, :]                  # (..., dnum, l_ext, N)
-        return torch.where(plan.own_mask[:, :, None], own, conv)
+        return modup(a.contiguous(), plan.modup)
 
     def _ip(self, digits, evk, plan: KeyswitchPlan):
         """(..., dnum, l_ext, N) x (dnum, 2, l_ext, N) -> (..., 2, l_ext, N)."""

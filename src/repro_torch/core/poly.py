@@ -5,8 +5,8 @@ set.  A polynomial under a basis of ``l`` primes is a ``(..., l, N)``
 int64 tensor of residues; products of two residues (< 2^30) fit int64,
 so plain ``(a * b) % q`` is exact.  Leading dimensions are a batch.
 
-``ntt``/``intt`` go through the NTT kernel (``kernels/ntt``) plus one
-``bitrev`` gather, and ``bconv`` through the BConv kernel, so every
+``ntt``/``intt`` go through the NTT kernel (``kernels/ntt``, natural
+order at both ends), and ``bconv`` through the BConv kernel, so every
 operation built on them (encode, encrypt, decrypt, rescale, keygen) runs
 on the card when its tensors do.
 
@@ -50,7 +50,6 @@ class PolyContext:
         self.rns = RNSContext(params)
         self.tabs = NTTTables(self.rns)
         self.moduli = torch.from_numpy(self.rns.moduli).to(self.device)
-        self.bitrev = torch.from_numpy(self.rns.bitrev).to(self.device)
         self._mods: dict[tuple, torch.Tensor] = {}
         self._bconv: dict[tuple, BConvConsts] = {}
 
@@ -104,12 +103,12 @@ def mul_scalar(a, s, mods):
 
 def ntt(x, primes: tuple[int, ...], pc: PolyContext):
     """Negacyclic forward NTT over stacked limbs, natural eval order out."""
-    return ntt_fwd(x.contiguous(), primes, pc.tabs)[..., pc.bitrev]
+    return ntt_fwd(x.contiguous(), primes, pc.tabs)
 
 
 def intt(x, primes: tuple[int, ...], pc: PolyContext):
     """Negacyclic inverse NTT of natural-order eval residues."""
-    return ntt_inv(x[..., pc.bitrev], primes, pc.tabs)
+    return ntt_inv(x.contiguous(), primes, pc.tabs)
 
 
 # --------------------------- basis conversion ---------------------------

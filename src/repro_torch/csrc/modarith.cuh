@@ -4,8 +4,8 @@
 // mont_redc, mont_mul, add_mod, sub_mod).  The TPU builds 64-bit products
 // from 16-bit partials because it has no wide multiply; Hopper has one, so
 // mont_mul is a 64-bit product plus one Montgomery reduction (R = 2^32).
-// Valid for odd q < 2^31; every function returns a fully reduced residue,
-// so any exact reduction elsewhere gives the same value.  No 64-bit `%`
+// Valid for odd q < 2^31; every function but mont_mul_lazy returns a fully
+// reduced residue, so any exact reduction elsewhere gives the same value.  No 64-bit `%`
 // (emulated, slow) appears in device code.
 #pragma once
 #include <cstdint>
@@ -21,6 +21,20 @@ __device__ __forceinline__ uint32_t mont_mul(uint32_t a, uint32_t b,
   const uint32_t r =
       static_cast<uint32_t>((t + static_cast<uint64_t>(m) * q) >> 32);  // < 2q
   return r >= q ? r - q : r;
+}
+
+// a * b * 2^-32 mod q, only partly reduced: the result is below 2q.
+// For a < 2^32, b < q.
+__device__ __forceinline__ uint32_t mont_mul_lazy(uint32_t a, uint32_t b,
+                                                  uint32_t q, uint32_t qinv_neg) {
+  const uint64_t t = static_cast<uint64_t>(a) * b;
+  const uint32_t m = static_cast<uint32_t>(t) * qinv_neg;
+  return static_cast<uint32_t>((t + static_cast<uint64_t>(m) * q) >> 32);
+}
+
+// a - c if a >= c, else a: maps [0, 2c) onto [0, c).
+__device__ __forceinline__ uint32_t fold(uint32_t a, uint32_t c) {
+  return a >= c ? a - c : a;
 }
 
 __device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b, uint32_t q) {

@@ -1,32 +1,61 @@
-// Negacyclic radix-2 NTT passes shared by ntt.cu and modup.cu.
+// Negacyclic NTT of whole rows in one launch, natural order at both ends,
+// shared by ntt.cu and modup.cu.
 //
-// Forward: psi^i pre-twist, then DIF stages s = logn-1 .. 0 (natural ->
-// bit-reversed order).  Inverse: DIT stages s = 0 .. logn-1 (bit-reversed
-// -> natural), then the psi^-i n^-1 post-twist.  Stage s with m = 2^s
-// pairs (p, p + m) inside blocks of 2m and uses twiddle tw[m + (p mod m)]
-// (the flat tree layout of the JAX package's kernels/ntt).
+// Forward: psi^i pre-twist, DIF stages s = logn-1 .. 0, then the
+// bit-reversal, so evaluation point k (psi^(2k+1)) lands at index k.
+// Inverse: the bit-reversal, DIT stages s = 0 .. logn-1, then the
+// psi^-i n^-1 post-twist.  Stage s with m = 2^s pairs (p, p + m) inside
+// blocks of 2m and uses twiddle tw[m + (p mod m)] (the flat tree layout
+// of the JAX package's kernels/ntt).
 //
-// One limb at logN = 16 is 2^16 words = 256 KB, more than a block's
-// 227 KB of shared memory, so a transform is split in two launches:
-//   * "low" stages (m < 2^C, C = min(logn, 11)) stay inside contiguous
-//     chunks of 2^C words: one block per (row, chunk) runs them in 8 KB
-//     of shared memory;
-//   * "high" stages (m >= 2^C) only mix words whose indices differ in
-//     the top H = logn - C bits: one thread per (row, column c < 2^C)
-//     holds the 2^H words c + k 2^C in registers and runs them all.
-// Each launch reads and writes the row once, so a transform moves the
-// row through device memory twice instead of logn times.
+// A row lives on chip from its first read to its last write.  One limb at
+// logN = 16 is 256 KB, more than a block's 227 KB of shared memory, so a
+// row is spread over a thread-block cluster of C = 2^LOGC blocks, each
+// holding M = N / C words in dynamic shared memory:
+//   * the LOGC top stages mix words i + r M (r < C) of the same column i;
+//     the forward runs them in registers right after the load and writes
+//     word i + r M to block r's shared memory (distributed shared
+//     memory); the inverse reads the column back from the C blocks and
+//     runs them in registers right before the store;
+//   * the other logm = logn - LOGC stages stay inside each block's M
+//     words: passes of up to 5 stages, each thread holding the 32 words
+//     of one butterfly group in registers, with the twiddles of these
+//     stages copied (cp.async, during the first phase) into a second
+//     M-word region of shared memory;
+//   * the bit-reversal is a regrouping through distributed shared memory:
+//     after the DIF, block r holds index k = j C + bitrev_c(r) (j < M) at
+//     offset bitrev_logm(j); each block regroups its words by the block
+//     that stores them, and every block then reads its group from all C
+//     blocks (32 consecutive words a warp), so that it stores a natural
+//     slice [r M, (r+1) M), coalesced.  The inverse loads its slice
+//     coalesced and runs the same exchange backwards (a third region).
+// Device memory sees each input word once and each output word once.
+// Rows that fit one block (logn <= 13) use LOGC = 0 and no cluster.
+//
+// Shared memory is swizzled (swz) so that every pass, and the
+// bit-reversed reads and writes, hit 32 distinct banks per warp.
 #pragma once
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "modarith.cuh"
 
 namespace he2 {
 
-constexpr int kChunkBits = 11;
-constexpr int kLowThreads = 256;
-constexpr int kHighThreads = 128;
-constexpr int kMaxHigh = 6;  // logn <= 17
+namespace cg = cooperative_groups;
+
+constexpr int kMinLogN = 5;
+constexpr int kMaxLogN = 17;
+constexpr int kMaxLogC = 3;    // portable cluster sizes 1, 2, 4, 8
+constexpr int kMaxLogM = 14;   // 2 or 3 regions of 64 KB a block
+constexpr int kPassBits = 5;   // stages a thread runs in registers
+constexpr int kThreads = 256;
+constexpr int kMinBlocks = 2;  // at most 128 registers a thread
+// The loops that touch device memory issue a batch of independent loads
+// before using any of them: with 16 warps an SM, one load in flight a
+// thread leaves the memory idle.
+constexpr int kBatch = 16;     // words a thread loads in the first phase
+constexpr int kWords = 8;      // words a thread moves at once elsewhere
 
 // Per-row tables.  Row r of a launch reads limb r % l; the twiddles and
 // the moduli come from global table row tw_row[r % l], the twist from
@@ -42,22 +71,21 @@ struct NttTables {
   int logn;
 };
 
-// The ModUp reduce y_j = sum_i t_i * (qhat_i mod d_j) mod d_j, read
-// straight from the (B, ls, N) INTT output.  Row r of a forward launch is
-// (batch r / ld, destination limb r % ld).
-struct Reduce {
-  const uint32_t* t;   // (B, ls, N)
-  const uint32_t* cm;  // (ls, ld) Montgomery wrt d_j
-  int ls;
-  int ld;
+// All digits of one ModUp.  Forward row r is (batch b, digit d,
+// destination limb e) with r = (b * dnum + d) * l_ext + e.  An own limb
+// (own[d * l_ext + e] >= 0) is that input row, passed through; any other
+// is the reduce y_e = sum_i t_i * (qhat_i mod d_e) mod d_e over the
+// digit's source rows of the (B, l, N) scaled INTT output t.
+struct ModUpArgs {
+  const uint32_t* t;      // (B, l, N) coefficients, scale folded in
+  const uint32_t* cm;     // (dnum, alpha, l_ext) Montgomery wrt d_e
+  const int32_t* own;     // (dnum, l_ext) input row or -1
+  const int32_t* digit;   // (dnum, 2) first source row, row count
+  int l, l_ext, dnum, alpha;
 };
 
-enum Src { kSrcI64Twist, kSrcU32, kSrcReduceTwist };
-enum Dst { kDstU32, kDstI64Twist, kDstU32Twist };
-
-__host__ __device__ inline int chunk_bits(int logn) {
-  return logn < kChunkBits ? logn : kChunkBits;
-}
+enum Src { kSrcI64, kSrcModUp };
+enum Dst { kDstI64, kDstU32 };
 
 struct Row {
   uint32_t q, qn;
@@ -73,249 +101,543 @@ __device__ __forceinline__ Row row_tables(const NttTables& t, int row) {
   return Row{t.q[tr], t.qn[tr], t.tw + size_t(tr) * n, t.twist + size_t(sr) * n};
 }
 
-__device__ __forceinline__ uint32_t reduce_at(const Reduce& red, int row,
-                                              size_t col, size_t n, uint32_t d,
-                                              uint32_t dn) {
-  const int b = row / red.ld;
-  const int j = row % red.ld;
-  const uint32_t* src = red.t + size_t(b) * red.ls * n + col;
-  uint32_t acc = 0;
-  for (int i = 0; i < red.ls; ++i)
-    acc = add_mod(acc, mont_mul(src[size_t(i) * n], red.cm[i * red.ld + j], d, dn), d);
-  return acc;
+// Bijective on [0, M) and linear over XOR: bits 5..9 and 10..14 are
+// folded into the bank bits.
+__device__ __forceinline__ int swz(int off) {
+  return off ^ ((off >> 5) & 31) ^ ((off >> 10) & 31);
+}
+
+__device__ __forceinline__ int bit_rev(int k, int bits) {
+  return bits ? static_cast<int>(__brev(static_cast<unsigned>(k)) >> (32 - bits)) : 0;
+}
+
+template <int LOGC>
+__device__ __forceinline__ uint32_t* smem_of(uint32_t* sh, int off, int rank) {
+  if constexpr (LOGC == 0) {
+    return sh + off;
+  } else {
+    return cg::this_cluster().map_shared_rank(sh + off, rank);
+  }
+}
+
+template <int LOGC>
+__device__ __forceinline__ void row_sync() {
+  if constexpr (LOGC == 0)
+    __syncthreads();
+  else
+    cg::this_cluster().sync();
+}
+
+// Butterflies keep words in [0, 2q) (q < 2^30, so 4q fits 32 bits) and
+// reduce fully only at the twist or on the way out.  DIF: (u, v) ->
+// (u + v, (u - v) w); DIT: (u, v) -> (u + v w, u - v w).
+template <bool FWD>
+__device__ __forceinline__ void butterfly(uint32_t& a, uint32_t& b, uint32_t w,
+                                          const Row& rt) {
+  const uint32_t q2 = 2 * rt.q;
+  if constexpr (FWD) {
+    const uint32_t u = a, v = b;
+    a = fold(u + v, q2);
+    b = mont_mul_lazy(u + q2 - v, w, rt.q, rt.qn);
+  } else {
+    const uint32_t u = a;
+    const uint32_t vw = mont_mul_lazy(b, w, rt.q, rt.qn);
+    a = fold(u + vw, q2);
+    b = fold(u + q2 - vw, q2);
+  }
+}
+
+// Stages [s_lo, s_lo + R) of the block's M = 2^logm words.  A group is
+// every word sharing the bits outside [s_lo, s_lo + R); consecutive
+// threads take consecutive groups.  Local stages (s < logm) use the same
+// twiddles in every block of a cluster: p mod m = off mod m.
+template <int R, bool FWD>
+__device__ __forceinline__ void pass(uint32_t* sh, const uint32_t* tw, int s_lo,
+                                     int logm, const Row& rt) {
+  constexpr int K = 1 << R;
+  const int groups = 1 << (logm - R);
+  const int low = (1 << s_lo) - 1;
+  // swz is linear over XOR and base has no bit in [s_lo, s_lo + R), so
+  // the byte offset of word k of a group is swz(base) ^ D(k), D(k) the XOR
+  // of d[b] over the bits b of k
+  uint32_t d[R];
+#pragma unroll
+  for (int b = 0; b < R; ++b) d[b] = uint32_t(swz(1 << (s_lo + b))) << 2;
+  char* shb = reinterpret_cast<char*>(sh);
+  for (int g = threadIdx.x; g < groups; g += blockDim.x) {
+    const int glow = g & low;
+    const int base = ((g >> s_lo) << (s_lo + R)) | glow;
+    const uint32_t sb = uint32_t(swz(base)) << 2;
+    uint32_t off[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      uint32_t o = sb;
+#pragma unroll
+      for (int b = 0; b < R; ++b)
+        if (k & (1 << b)) o ^= d[b];
+      off[k] = o;
+    }
+    uint32_t e[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) e[k] = *reinterpret_cast<uint32_t*>(shb + off[k]);
+#pragma unroll
+    for (int bb = 0; bb < R; ++bb) {
+      const int b = FWD ? R - 1 - bb : bb;
+      const int M = 1 << b;
+      const int m = 1 << (s_lo + b);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (k & M) continue;
+        const int j = ((k & (M - 1)) << s_lo) | glow;
+        const uint32_t w = tw[m + j];
+        butterfly<FWD>(e[k], e[k + M], w, rt);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) *reinterpret_cast<uint32_t*>(shb + off[k]) = e[k];
+  }
+  __syncthreads();
+}
+
+template <bool FWD>
+__device__ __forceinline__ void run_pass(uint32_t* sh, const uint32_t* tw,
+                                         int s_lo, int r, int logm,
+                                         const Row& rt) {
+  switch (r) {
+    case 1: pass<1, FWD>(sh, tw, s_lo, logm, rt); break;
+    case 2: pass<2, FWD>(sh, tw, s_lo, logm, rt); break;
+    case 3: pass<3, FWD>(sh, tw, s_lo, logm, rt); break;
+    case 4: pass<4, FWD>(sh, tw, s_lo, logm, rt); break;
+    case 5: pass<5, FWD>(sh, tw, s_lo, logm, rt); break;
+  }
+}
+
+// The block's logm local stages.  Every pass but the one at s_lo = 0
+// starts at bit 5 or above, so a warp's 32 groups differ in the low five
+// address bits; the s_lo = 0 pass relies on swz instead.
+__device__ __forceinline__ void local_fwd(uint32_t* sh, const uint32_t* tw,
+                                          int logm, const Row& rt) {
+  int hi = logm;
+  while (hi > kPassBits) {
+    const int r = hi - kPassBits < kPassBits ? hi - kPassBits : kPassBits;
+    run_pass<true>(sh, tw, hi - r, r, logm, rt);
+    hi -= r;
+  }
+  run_pass<true>(sh, tw, 0, hi, logm, rt);
+}
+
+__device__ __forceinline__ void local_inv(uint32_t* sh, const uint32_t* tw,
+                                          int logm, const Row& rt) {
+  int lo = logm < kPassBits ? logm : kPassBits;
+  run_pass<false>(sh, tw, 0, lo, logm, rt);
+  while (lo < logm) {
+    const int r = logm - lo < kPassBits ? logm - lo : kPassBits;
+    run_pass<false>(sh, tw, lo, r, logm, rt);
+    lo += r;
+  }
+}
+
+// tw[0 .. M), the twiddles of the local stages, copied asynchronously
+// into the second shared-memory region: the copy overlaps the first phase,
+// and twiddles_ready() waits for it before the passes.
+__device__ __forceinline__ const uint32_t* stage_twiddles(uint32_t* sh, int M,
+                                                          const Row& rt) {
+  uint32_t* tws = sh + M;
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(tws));
+  for (int c = threadIdx.x; c < M / 4; c += blockDim.x)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(dst + 16 * c), "l"(rt.tw + 4 * c) : "memory");
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  return tws;
+}
+
+__device__ __forceinline__ void twiddles_ready() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Split cluster barrier: arrive when the block starts, wait before the
+// first write to another block's shared memory, so that every block of
+// the cluster is running by then.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  return static_cast<int>(cg::this_cluster().block_rank());
+}
+
+// The LOGC top stages of column i, words e[r] = row[i + r M].
+template <int LOGC>
+__device__ __forceinline__ void top_fwd(uint32_t (&e)[1 << LOGC], int i,
+                                        int logm, const Row& rt) {
+#pragma unroll
+  for (int b = LOGC - 1; b >= 0; --b) {
+    const int Mb = 1 << b;
+    const int m = 1 << (logm + b);
+#pragma unroll
+    for (int r = 0; r < (1 << LOGC); ++r) {
+      if (r & Mb) continue;
+      const int j = i + ((r & (Mb - 1)) << logm);
+      butterfly<true>(e[r], e[r + Mb], __ldg(rt.tw + m + j), rt);
+    }
+  }
+}
+
+template <int LOGC>
+__device__ __forceinline__ void top_inv(uint32_t (&e)[1 << LOGC], int i,
+                                        int logm, const Row& rt) {
+#pragma unroll
+  for (int b = 0; b < LOGC; ++b) {
+    const int Mb = 1 << b;
+    const int m = 1 << (logm + b);
+#pragma unroll
+    for (int r = 0; r < (1 << LOGC); ++r) {
+      if (r & Mb) continue;
+      const int j = i + ((r & (Mb - 1)) << logm);
+      butterfly<false>(e[r], e[r + Mb], __ldg(rt.tw + m + j), rt);
+    }
+  }
 }
 
 // ---------------------------------------------------------------- forward
-template <int SRC>
-__global__ void __launch_bounds__(kLowThreads)
-fwd_low(NttTables t, const int64_t* in64, const uint32_t* in32, int64_t* out,
-        Reduce red) {
-  __shared__ uint32_t sh[1 << kChunkBits];
-  const int C = chunk_bits(t.logn);
-  const int csize = 1 << C;
-  const int nchunk = 1 << (t.logn - C);
-  const int row = blockIdx.x / nchunk;
-  const int h = blockIdx.x % nchunk;
+// Grid: rows * C blocks, cluster (C, 1, 1).  SRC = kSrcI64 reads int64
+// `in`; SRC = kSrcModUp builds row r of a ModUp from `mu` (own rows copied
+// from `in`).
+template <int LOGC, int SRC>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fwd_kernel(NttTables t, const int64_t* in, int64_t* out, ModUpArgs mu) {
+  extern __shared__ uint32_t sh[];
+  constexpr int C = 1 << LOGC;
+  constexpr int U = C < kBatch ? kBatch / C : 1;  // columns a batch
+  const int logm = t.logn - LOGC;
+  const int M = 1 << logm;
   const size_t n = size_t(1) << t.logn;
-  const size_t base = size_t(row) * n + size_t(h) * csize;
-  const Row rt = row_tables(t, row);
-  for (int i = threadIdx.x; i < csize; i += blockDim.x) {
-    const size_t col = size_t(h) * csize + i;
-    uint32_t v;
-    if constexpr (SRC == kSrcU32) {
-      v = in32[base + i];
-    } else {
-      if constexpr (SRC == kSrcI64Twist)
-        v = static_cast<uint32_t>(in64[base + i]);
-      else
-        v = reduce_at(red, row, col, n, rt.q, rt.qn);
-      v = mont_mul(v, rt.twist[col], rt.q, rt.qn);
+  const int row = blockIdx.x >> LOGC;
+  const int rank = LOGC ? cluster_rank() : 0;
+  const int T = blockDim.x;
+  int64_t* y = out + size_t(row) * n;
+
+  const uint32_t* src = nullptr;
+  const uint32_t* cm = nullptr;
+  int ls = 0;
+  const int64_t* x = in + size_t(row) * n;
+  if constexpr (SRC == kSrcModUp) {
+    const int e = row % mu.l_ext;
+    const int d = (row / mu.l_ext) % mu.dnum;
+    const int b = row / (mu.l_ext * mu.dnum);
+    const int own = mu.own[d * mu.l_ext + e];
+    if (own >= 0) {  // the whole cluster takes this branch: no barrier
+      x = in + (size_t(b) * mu.l + own) * n + size_t(rank) * M;
+      int64_t* yr = y + size_t(rank) * M;
+      for (int k0 = threadIdx.x; k0 < M; k0 += T * kWords) {
+        int64_t v[kWords];
+#pragma unroll
+        for (int u = 0; u < kWords; ++u)
+          if (k0 + u * T < M) v[u] = x[k0 + u * T];
+#pragma unroll
+        for (int u = 0; u < kWords; ++u)
+          if (k0 + u * T < M) yr[k0 + u * T] = v[u];
+      }
+      return;
     }
-    sh[i] = v;
+    src = mu.t + (size_t(b) * mu.l + mu.digit[2 * d]) * n;
+    ls = mu.digit[2 * d + 1];
+    cm = mu.cm + size_t(d) * mu.alpha * mu.l_ext + e;
   }
-  __syncthreads();
-  for (int s = C - 1; s >= 0; --s) {
-    const int m = 1 << s;
-    for (int b = threadIdx.x; b < csize / 2; b += blockDim.x) {
-      const int j = b & (m - 1);
-      const int i0 = ((b >> s) << (s + 1)) + j;
-      const uint32_t u = sh[i0];
-      const uint32_t v = sh[i0 + m];
-      sh[i0] = add_mod(u, v, rt.q);
-      sh[i0 + m] = mont_mul(sub_mod(u, v, rt.q), rt.tw[m + j], rt.q, rt.qn);
+  const Row rt = row_tables(t, row);
+  const uint32_t* tws = stage_twiddles(sh, M, rt);
+
+  // load, pre-twist, top LOGC stages, scatter to the owning blocks (once
+  // every block of the cluster has started)
+  if constexpr (LOGC > 0) cluster_arrive();
+  const int cols = M >> LOGC;
+  const int c0 = rank * cols;
+  bool waited = false;
+  for (int i0 = threadIdx.x; i0 < cols; i0 += T * U) {
+    uint32_t e[U][C];
+    if constexpr (SRC == kSrcI64) {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int r = 0; r < C; ++r)
+          if (i0 + u * T < cols)
+            e[u][r] = static_cast<uint32_t>(x[c0 + i0 + u * T + (r << logm)]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int r = 0; r < C; ++r) e[u][r] = 0;
+      for (int s = 0; s < ls; ++s) {
+        const uint32_t f = __ldg(cm + s * mu.l_ext);
+        const uint32_t* ts = src + size_t(s) * n + c0 + i0;
+        uint32_t v[U][C];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int r = 0; r < C; ++r)
+            if (i0 + u * T < cols) v[u][r] = ts[u * T + (r << logm)];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int r = 0; r < C; ++r)
+            if (i0 + u * T < cols)
+              e[u][r] = add_mod(e[u][r], mont_mul(v[u][r], f, rt.q, rt.qn), rt.q);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = c0 + i0 + u * T;
+      if (i0 + u * T >= cols) break;
+#pragma unroll
+      for (int r = 0; r < C; ++r)
+        e[u][r] = mont_mul(e[u][r], __ldg(rt.twist + i + (r << logm)), rt.q, rt.qn);
+      top_fwd<LOGC>(e[u], i, logm, rt);
+      if constexpr (LOGC > 0) {
+        if (!waited) cluster_wait();
+        waited = true;
+      }
+#pragma unroll
+      for (int r = 0; r < C; ++r) *smem_of<LOGC>(sh, swz(i), r) = e[u][r];
+    }
+  }
+  if constexpr (LOGC > 0) {
+    if (!waited) cluster_wait();
+  }
+  twiddles_ready();
+  row_sync<LOGC>();  // every word of the block has arrived
+  local_fwd(sh, tws, logm, rt);
+
+  // natural order out.  Block `rank` holds p = rank M + off, the value of
+  // k = bitrev(p) = j C + bitrev_c(rank) with j = bitrev_logm(off); block
+  // r' stores k in [r' M, (r' + 1) M), whose words sit in every block at
+  // the offsets off = a + b C with a = bitrev_c(r') (b < M / C).
+  if constexpr (LOGC == 0) {
+    for (int j0 = threadIdx.x; j0 < M; j0 += T * kWords) {
+      uint32_t v[kWords];
+#pragma unroll
+      for (int u = 0; u < kWords; ++u)
+        if (j0 + u * T < M) v[u] = fold(sh[swz(bit_rev(j0 + u * T, logm))], rt.q);
+#pragma unroll
+      for (int u = 0; u < kWords; ++u)
+        if (j0 + u * T < M) y[j0 + u * T] = v[u];
+    }
+  } else {
+    // 1. regroup locally by destination: word a + b C to a (M / C) + b
+    uint32_t* grouped = sh + M;  // the twiddles are no longer needed
+    const int B = M >> LOGC;
+    for (int b = threadIdx.x; b < B; b += T) {
+      uint32_t v[C];
+#pragma unroll
+      for (int a = 0; a < C; ++a) v[a] = sh[swz((b << LOGC) + a)];
+#pragma unroll
+      for (int a = 0; a < C; ++a) grouped[a * B + b] = v[a];
+    }
+    row_sync<LOGC>();  // every block's groups are ready
+    // 2. read this block's group from every block (32 consecutive words a
+    //    warp), into natural order k - rank M = bitrev(b) C + bitrev_c(s)
+    const int a = bit_rev(rank, LOGC);
+    const int logb = logm - LOGC;
+    for (int b0 = threadIdx.x; b0 < B; b0 += T * (kWords / C > 0 ? kWords / C : 1)) {
+      constexpr int UB = kWords / C > 0 ? kWords / C : 1;
+      uint32_t v[UB][C];
+#pragma unroll
+      for (int u = 0; u < UB; ++u)
+#pragma unroll
+        for (int s2 = 0; s2 < C; ++s2)
+          if (b0 + u * T < B) v[u][s2] = *smem_of<LOGC>(grouped, a * B + b0 + u * T, s2);
+#pragma unroll
+      for (int u = 0; u < UB; ++u)
+#pragma unroll
+        for (int s2 = 0; s2 < C; ++s2)
+          if (b0 + u * T < B)
+            sh[swz((bit_rev(b0 + u * T, logb) << LOGC) + bit_rev(s2, LOGC))] = v[u][s2];
     }
     __syncthreads();
-  }
-  for (int i = threadIdx.x; i < csize; i += blockDim.x) out[base + i] = sh[i];
-}
-
-template <int H, int SRC>
-__global__ void __launch_bounds__(kHighThreads)
-fwd_high(NttTables t, const int64_t* in64, uint32_t* out, Reduce red) {
-  constexpr int K = 1 << H;
-  const int C = t.logn - H;
-  const int per_row = (1 << C) / kHighThreads;
-  const int row = blockIdx.x / per_row;
-  const size_t c = size_t(blockIdx.x % per_row) * kHighThreads + threadIdx.x;
-  const size_t n = size_t(1) << t.logn;
-  const Row rt = row_tables(t, row);
-  uint32_t e[K];
+    // 3. coalesced store of the slice
+    int64_t* yr = y + size_t(rank) * M;
+    for (int k0 = threadIdx.x; k0 < M; k0 += T * kWords) {
+      uint32_t v[kWords];
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const size_t col = c + (size_t(k) << C);
-    uint32_t v;
-    if constexpr (SRC == kSrcI64Twist)
-      v = static_cast<uint32_t>(in64[size_t(row) * n + col]);
-    else
-      v = reduce_at(red, row, col, n, rt.q, rt.qn);
-    e[k] = mont_mul(v, rt.twist[col], rt.q, rt.qn);
-  }
+      for (int u = 0; u < kWords; ++u)
+        if (k0 + u * T < M) v[u] = fold(sh[swz(k0 + u * T)], rt.q);
 #pragma unroll
-  for (int b = H - 1; b >= 0; --b) {
-    const int M = 1 << b;
-    const size_t m = size_t(1) << (b + C);
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      if (k & M) continue;
-      const size_t j = c + (size_t(k & (M - 1)) << C);
-      const uint32_t u = e[k];
-      const uint32_t v = e[k + M];
-      e[k] = add_mod(u, v, rt.q);
-      e[k + M] = mont_mul(sub_mod(u, v, rt.q), rt.tw[m + j], rt.q, rt.qn);
+      for (int u = 0; u < kWords; ++u)
+        if (k0 + u * T < M) yr[k0 + u * T] = v[u];
     }
+    row_sync<LOGC>();  // keep the groups alive for the other blocks
   }
-#pragma unroll
-  for (int k = 0; k < K; ++k) out[size_t(row) * n + c + (size_t(k) << C)] = e[k];
 }
 
 // ---------------------------------------------------------------- inverse
-template <int DST>
-__global__ void __launch_bounds__(kLowThreads)
-inv_low(NttTables t, const int64_t* in, uint32_t* out32, int64_t* out64) {
-  __shared__ uint32_t sh[1 << kChunkBits];
-  const int C = chunk_bits(t.logn);
-  const int csize = 1 << C;
-  const int nchunk = 1 << (t.logn - C);
-  const int row = blockIdx.x / nchunk;
-  const int h = blockIdx.x % nchunk;
+// Grid: rows * C blocks, cluster (C, 1, 1).  Natural eval order in,
+// post-twisted natural coefficients out, int64 (DST = kDstI64) or 32-bit
+// (DST = kDstU32).
+template <int LOGC, int DST>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+inv_kernel(NttTables t, const int64_t* in, int64_t* out64, uint32_t* out32) {
+  extern __shared__ uint32_t sh[];
+  constexpr int C = 1 << LOGC;
+  constexpr int U = C < kBatch ? kBatch / C : 1;  // columns a batch
+  const int logm = t.logn - LOGC;
+  const int M = 1 << logm;
   const size_t n = size_t(1) << t.logn;
-  const size_t base = size_t(row) * n + size_t(h) * csize;
+  const int row = blockIdx.x >> LOGC;
+  const int rank = LOGC ? cluster_rank() : 0;
+  const int T = blockDim.x;
   const Row rt = row_tables(t, row);
-  for (int i = threadIdx.x; i < csize; i += blockDim.x)
-    sh[i] = static_cast<uint32_t>(in[base + i]);
-  __syncthreads();
-  for (int s = 0; s < C; ++s) {
-    const int m = 1 << s;
-    for (int b = threadIdx.x; b < csize / 2; b += blockDim.x) {
-      const int j = b & (m - 1);
-      const int i0 = ((b >> s) << (s + 1)) + j;
-      const uint32_t u = sh[i0];
-      const uint32_t vw = mont_mul(sh[i0 + m], rt.tw[m + j], rt.q, rt.qn);
-      sh[i0] = add_mod(u, vw, rt.q);
-      sh[i0 + m] = sub_mod(u, vw, rt.q);
-    }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < csize; i += blockDim.x) {
-    uint32_t v = sh[i];
-    if constexpr (DST != kDstU32)
-      v = mont_mul(v, rt.twist[size_t(h) * csize + i], rt.q, rt.qn);
-    if constexpr (DST == kDstI64Twist)
-      out64[base + i] = v;
-    else
-      out32[base + i] = v;
-  }
-}
+  const uint32_t* tws = stage_twiddles(sh, M, rt);
 
-// Reads and writes the same positions of each column, so in == out32 is
-// allowed.
-template <int H, int DST>
-__global__ void __launch_bounds__(kHighThreads)
-inv_high(NttTables t, const uint32_t* in, uint32_t* out32, int64_t* out64) {
-  constexpr int K = 1 << H;
-  const int C = t.logn - H;
-  const int per_row = (1 << C) / kHighThreads;
-  const int row = blockIdx.x / per_row;
-  const size_t c = size_t(blockIdx.x % per_row) * kHighThreads + threadIdx.x;
-  const size_t n = size_t(1) << t.logn;
-  const Row rt = row_tables(t, row);
-  uint32_t e[K];
+  if constexpr (LOGC == 0) {
+    // bit-reversal on the way in: index k to offset bitrev(k)
+    const int64_t* xr = in + size_t(row) * n;
+    for (int j0 = threadIdx.x; j0 < M; j0 += T * kWords) {
+      uint32_t v[kWords];
 #pragma unroll
-  for (int k = 0; k < K; ++k) e[k] = in[size_t(row) * n + c + (size_t(k) << C)];
+      for (int u = 0; u < kWords; ++u)
+        if (j0 + u * T < M) v[u] = static_cast<uint32_t>(xr[j0 + u * T]);
 #pragma unroll
-  for (int b = 0; b < H; ++b) {
-    const int M = 1 << b;
-    const size_t m = size_t(1) << (b + C);
+      for (int u = 0; u < kWords; ++u)
+        if (j0 + u * T < M) sh[swz(bit_rev(j0 + u * T, logm))] = v[u];
+    }
+  } else {
+    // The forward's way out, backwards.  Block r' loads its natural slice
+    // k = r' M + kk, kk = bitrev(b) C + bitrev_c(s), coalesced, grouped
+    // by the block s that takes it at offset b C + bitrev_c(r').
+    uint32_t* grouped = sh + 2 * M;
+    const int B = M >> LOGC;
+    const int logb = logm - LOGC;
+    const int64_t* xr = in + size_t(row) * n + size_t(rank) * M;
+    for (int k0 = threadIdx.x; k0 < M; k0 += T * kWords) {
+      uint32_t v[kWords];
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      if (k & M) continue;
-      const size_t j = c + (size_t(k & (M - 1)) << C);
-      const uint32_t u = e[k];
-      const uint32_t vw = mont_mul(e[k + M], rt.tw[m + j], rt.q, rt.qn);
-      e[k] = add_mod(u, vw, rt.q);
-      e[k + M] = sub_mod(u, vw, rt.q);
+      for (int u = 0; u < kWords; ++u)
+        if (k0 + u * T < M) v[u] = static_cast<uint32_t>(xr[k0 + u * T]);
+#pragma unroll
+      for (int u = 0; u < kWords; ++u) {
+        const int kk = k0 + u * T;
+        if (kk < M)
+          grouped[swz(bit_rev(kk & (C - 1), LOGC) * B + bit_rev(kk >> LOGC, logb))] = v[u];
+      }
+    }
+    row_sync<LOGC>();  // every block's groups are ready
+    // read this block's group from every block (32 consecutive words a
+    // warp) into its offsets
+    constexpr int UB = kWords / C > 0 ? kWords / C : 1;
+    for (int b0 = threadIdx.x; b0 < B; b0 += T * UB) {
+      uint32_t v[UB][C];
+#pragma unroll
+      for (int u = 0; u < UB; ++u)
+#pragma unroll
+        for (int r2 = 0; r2 < C; ++r2)
+          if (b0 + u * T < B) v[u][r2] = *smem_of<LOGC>(grouped, swz(rank * B + b0 + u * T), r2);
+#pragma unroll
+      for (int u = 0; u < UB; ++u)
+#pragma unroll
+        for (int r2 = 0; r2 < C; ++r2)
+          if (b0 + u * T < B) sh[swz(((b0 + u * T) << LOGC) + bit_rev(r2, LOGC))] = v[u][r2];
     }
   }
+  twiddles_ready();
+  __syncthreads();
+  local_inv(sh, tws, logm, rt);
+  if constexpr (LOGC > 0) row_sync<LOGC>();  // every block's stages are done
+
+  // gather column i from the C blocks, top LOGC stages, post-twist, store
+  const int cols = M >> LOGC;
+  const int c0 = rank * cols;
+  for (int i0 = threadIdx.x; i0 < cols; i0 += T * U) {
+    uint32_t e[U][C];
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const size_t col = c + (size_t(k) << C);
-    const uint32_t v = mont_mul(e[k], rt.twist[col], rt.q, rt.qn);
-    if constexpr (DST == kDstI64Twist)
-      out64[size_t(row) * n + col] = v;
-    else
-      out32[size_t(row) * n + col] = v;
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int r = 0; r < C; ++r)
+        if (i0 + u * T < cols) e[u][r] = *smem_of<LOGC>(sh, swz(c0 + i0 + u * T), r);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = c0 + i0 + u * T;
+      if (i0 + u * T >= cols) break;
+      top_inv<LOGC>(e[u], i, logm, rt);
+#pragma unroll
+      for (int r = 0; r < C; ++r) {
+        const size_t p = size_t(row) * n + i + (r << logm);
+        const uint32_t v = mont_mul(e[u][r], __ldg(rt.twist + i + (r << logm)), rt.q, rt.qn);
+        if constexpr (DST == kDstI64)
+          out64[p] = v;
+        else
+          out32[p] = v;
+      }
+    }
   }
+  if constexpr (LOGC > 0) row_sync<LOGC>();  // keep sh alive for readers
 }
 
 // ---------------------------------------------------------------- host side
-inline bool ntt_shape_ok(int logn) {
-  return logn >= 1 && logn <= kChunkBits + kMaxHigh;
+inline bool ntt_shape_ok(int logn, int logc) {
+  return logn >= kMinLogN && logn <= kMaxLogN && logc >= 0 &&
+         logc <= kMaxLogC && logn - logc >= kMinLogN &&
+         logn - logc <= kMaxLogM;
 }
 
-template <int H, int SRC>
-void launch_fwd_high(const NttTables& t, int rows, const int64_t* x,
-                     uint32_t* work, const Reduce& red, cudaStream_t st) {
-  const int per_row = (1 << (t.logn - H)) / kHighThreads;
-  fwd_high<H, SRC><<<rows * per_row, kHighThreads, 0, st>>>(t, x, work, red);
+inline int threads_for(int logm) {
+  const int t = 1 << (logm - kPassBits);  // one 32-word group a thread
+  return t < 32 ? 32 : (t > kThreads ? kThreads : t);
 }
 
-template <int H, int DST>
-void launch_inv_high(const NttTables& t, int rows, uint32_t* work,
-                     uint32_t* y32, int64_t* y64, cudaStream_t st) {
-  const int per_row = (1 << (t.logn - H)) / kHighThreads;
-  inv_high<H, DST><<<rows * per_row, kHighThreads, 0, st>>>(t, work, y32, y64);
+// One launch of `kern` over rows * 2^logc blocks in clusters of 2^logc,
+// with `regions` regions of 2^(logn - logc) words of dynamic shared memory
+// (data, twiddles, and the inverse's grouped input).  A refused launch (shared memory, cluster size) returns its
+// error; nothing falls back.
+template <typename Kern, typename... Args>
+int launch_rows(Kern kern, int logn, int logc, int regions, long long rows,
+                cudaStream_t st, Args... args) {
+  const int logm = logn - logc;
+  const size_t smem = size_t(4 * regions) << logm;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(unsigned(rows << logc), 1, 1);
+  cfg.blockDim = dim3(threads_for(logm), 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1u << logc;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = logc > 0 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, kern, args...);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
-// Forward transform of `rows` rows into int64 `y`.  SRC is kSrcI64Twist
-// (read int64 `x`) or kSrcReduceTwist (ModUp reduce from `red`).  `work`
-// holds rows * N words when logn > kChunkBits.
 template <int SRC>
-int forward(const NttTables& t, int rows, const int64_t* x, const Reduce& red,
-            uint32_t* work, int64_t* y, cudaStream_t st) {
-  if (!ntt_shape_ok(t.logn)) return cudaErrorInvalidValue;
-  const int C = chunk_bits(t.logn);
-  const int H = t.logn - C;
-  const int nchunk = 1 << H;
-  if (H == 0) {
-    fwd_low<SRC><<<rows, kLowThreads, 0, st>>>(t, x, nullptr, y, red);
-    return cudaGetLastError();
+int forward(const NttTables& t, long long rows, int logc, const int64_t* x,
+            int64_t* y, const ModUpArgs& mu, cudaStream_t st) {
+  if (!ntt_shape_ok(t.logn, logc)) return cudaErrorInvalidValue;
+  switch (logc) {
+    case 0: return launch_rows(fwd_kernel<0, SRC>, t.logn, 0, 2, rows, st, t, x, y, mu);
+    case 1: return launch_rows(fwd_kernel<1, SRC>, t.logn, 1, 2, rows, st, t, x, y, mu);
+    case 2: return launch_rows(fwd_kernel<2, SRC>, t.logn, 2, 2, rows, st, t, x, y, mu);
+    default: return launch_rows(fwd_kernel<3, SRC>, t.logn, 3, 2, rows, st, t, x, y, mu);
   }
-  switch (H) {
-    case 1: launch_fwd_high<1, SRC>(t, rows, x, work, red, st); break;
-    case 2: launch_fwd_high<2, SRC>(t, rows, x, work, red, st); break;
-    case 3: launch_fwd_high<3, SRC>(t, rows, x, work, red, st); break;
-    case 4: launch_fwd_high<4, SRC>(t, rows, x, work, red, st); break;
-    case 5: launch_fwd_high<5, SRC>(t, rows, x, work, red, st); break;
-    case 6: launch_fwd_high<6, SRC>(t, rows, x, work, red, st); break;
-  }
-  fwd_low<kSrcU32><<<rows * nchunk, kLowThreads, 0, st>>>(t, nullptr, work, y, red);
-  return cudaGetLastError();
 }
 
-// Inverse transform of int64 `x`, post-twisted, into int64 `y64`
-// (DST = kDstI64Twist) or 32-bit `y32` (DST = kDstU32Twist).  `work`
-// holds rows * N words when logn > kChunkBits; it may equal `y32`.
 template <int DST>
-int inverse(const NttTables& t, int rows, const int64_t* x, uint32_t* work,
-            uint32_t* y32, int64_t* y64, cudaStream_t st) {
-  if (!ntt_shape_ok(t.logn)) return cudaErrorInvalidValue;
-  const int C = chunk_bits(t.logn);
-  const int H = t.logn - C;
-  const int nchunk = 1 << H;
-  if (H == 0) {
-    inv_low<DST><<<rows, kLowThreads, 0, st>>>(t, x, y32, y64);
-    return cudaGetLastError();
+int inverse(const NttTables& t, long long rows, int logc, const int64_t* x,
+            int64_t* y64, uint32_t* y32, cudaStream_t st) {
+  if (!ntt_shape_ok(t.logn, logc)) return cudaErrorInvalidValue;
+  switch (logc) {
+    case 0: return launch_rows(inv_kernel<0, DST>, t.logn, 0, 2, rows, st, t, x, y64, y32);
+    case 1: return launch_rows(inv_kernel<1, DST>, t.logn, 1, 3, rows, st, t, x, y64, y32);
+    case 2: return launch_rows(inv_kernel<2, DST>, t.logn, 2, 3, rows, st, t, x, y64, y32);
+    default: return launch_rows(inv_kernel<3, DST>, t.logn, 3, 3, rows, st, t, x, y64, y32);
   }
-  inv_low<kDstU32><<<rows * nchunk, kLowThreads, 0, st>>>(t, x, work, nullptr);
-  switch (H) {
-    case 1: launch_inv_high<1, DST>(t, rows, work, y32, y64, st); break;
-    case 2: launch_inv_high<2, DST>(t, rows, work, y32, y64, st); break;
-    case 3: launch_inv_high<3, DST>(t, rows, work, y32, y64, st); break;
-    case 4: launch_inv_high<4, DST>(t, rows, work, y32, y64, st); break;
-    case 5: launch_inv_high<5, DST>(t, rows, work, y32, y64, st); break;
-    case 6: launch_inv_high<6, DST>(t, rows, work, y32, y64, st); break;
-  }
-  return cudaGetLastError();
 }
 
 }  // namespace he2

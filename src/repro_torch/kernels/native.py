@@ -8,9 +8,11 @@ an edited source is rebuilt and a stale library is never loaded.  Nothing
 is built at import time: the first kernel launch (or ``build_all``) does
 it.
 
-Every C entry point returns ``cudaGetLastError()`` after its launches;
-``call`` raises on a non-zero code.  ``LAUNCHES`` counts, per kernel, the
-wrapper calls that launched it on the card.
+Every C entry point returns the first failed launch's error, or
+``cudaGetLastError()`` after its launches; ``call`` raises on a non-zero
+code.  ``LAUNCHES`` counts, per kernel, the wrapper calls that launched it
+on the card; ``CALLS`` counts them per (entry point, shape) where the
+wrapper names its shape.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
+CALLS: dict[tuple, int] = {}
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -86,12 +89,19 @@ def build_all() -> dict:
     return report
 
 
-def call(kernel: str, fn: str, *args) -> None:
+def reset_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+    CALLS.clear()
+
+
+def call(kernel: str, fn: str, *args, shape: tuple | None = None) -> None:
     """Call C entry point ``fn`` of ``kernel``'s library and count it.
 
     ``args`` are Python ints: device pointers (``tensor.data_ptr()``) and
     sizes.  Every argument is passed as a 64-bit value; the C side takes
-    pointers and ``long long`` sizes, and the current stream last."""
+    pointers and ``long long`` sizes, and the current stream last.
+    ``shape``, when given, keys the call in ``CALLS``."""
     if kernel not in _libs:
         build_all()
     f = getattr(_libs[kernel], fn)
@@ -102,6 +112,8 @@ def call(kernel: str, fn: str, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{kernel}.{fn}: CUDA error {rc} at launch")
     LAUNCHES[kernel] += 1
+    if shape is not None:
+        CALLS[shape] = CALLS.get(shape, 0) + 1
 
 
 def ptr(t: torch.Tensor | None) -> int:

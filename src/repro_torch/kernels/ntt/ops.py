@@ -1,26 +1,70 @@
 """Negacyclic NTT: tables, the CUDA kernel's wrapper and its plain version.
 
 Counterpart of the JAX package's ``kernels/ntt`` (``NTTKernelTables``,
-``ntt_fwd`` / ``ntt_inv``, ``ntt_pallas``).  Forward maps natural
-coefficient order to bit-reversed evaluation order (DIF); inverse maps
-back (DIT).  Twiddles use the flat tree layout ``tw[m + j]``.
+``ntt_fwd`` / ``ntt_inv``, ``ntt_pallas``) together with the JAX engine's
+bit-reversal bridge: forward maps natural coefficients to natural
+evaluation order (index k holds the value at psi^(2k+1)); inverse maps
+back.  Internally the forward is DIF (natural -> bit-reversed) and the
+inverse DIT (bit-reversed -> natural), twiddles in the flat tree layout
+``tw[m + j]``; the kernel does the bit-reversal on chip, the plain
+version with one gather.
 
 Residues are int64 tensors of shape ``(..., l, N)``.  On a CPU tensor the
 wrappers run the plain version; on a CUDA tensor they launch
-``csrc/ntt.cu``.
+``csrc/ntt.cu``, one launch per call.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.rns import RNSContext
+from repro_torch.core.rns import RNSContext, bit_reverse
 from repro_torch.kernels import native
 from repro_torch.kernels.modops import as_u32, qinv_neg_host, to_mont_host
 
-# logN above which the kernel splits a transform in two launches and
-# needs a 32-bit workspace (``kChunkBits`` in ``csrc/ntt_device.cuh``).
-CHUNK_BITS = 11
+# A block holds 2^MAX_BLOCK_BITS words of a row where the row allows, a
+# cluster at most 2^MAX_CLUSTER_BITS blocks (``csrc/ntt_device.cuh``).
+MAX_BLOCK_BITS = 13
+MAX_CLUSTER_BITS = 3
+# The kernels' butterflies keep residues below 4q in 32 bits.
+MAX_PRIME = 1 << 30
+
+
+def cluster_bits(logn: int, rows: int, sms: int) -> int:
+    """log2 of the blocks a row is spread over.
+
+    As few as hold the row at 2^13 words a block (one block up to
+    logN = 13, eight at logN = 16), and one split more while that leaves
+    fewer blocks than the card has SMs (``sms``).  At logN = 16 every
+    shape gets clusters of 8: the card ran the paper's forward
+    (2 x 36 rows), inverse (2 x 12 rows) and ModUp faster with 8 blocks
+    a row than with 4 (PERF.md, ``tools/ntt_study.py``)."""
+    c = min(MAX_CLUSTER_BITS, max(0, logn - MAX_BLOCK_BITS))
+    if 0 < c < MAX_CLUSTER_BITS and (rows << c) < sms:
+        c += 1
+    return c
+
+
+_SMS: dict[torch.device, int] = {}
+
+
+def sm_count(device) -> int:
+    device = torch.device(device)
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
+
+
+_BITREV: dict[tuple, torch.Tensor] = {}
+
+
+def bitrev_index(n: int, device) -> torch.Tensor:
+    """The bit-reversal permutation of ``range(n)`` on ``device``."""
+    key = (n, torch.device(device))
+    if key not in _BITREV:
+        _BITREV[key] = torch.from_numpy(bit_reverse(n)).to(device)
+    return _BITREV[key]
 
 
 def _flat_tree(stages: list[np.ndarray], n: int) -> np.ndarray:
@@ -66,6 +110,8 @@ class NTTTables:
     def mont_tables(self, device) -> dict:
         """32-bit Montgomery tables (int32 storage) for the kernel."""
         device = torch.device(device)
+        if int(self.q.max()) >= MAX_PRIME:
+            raise ValueError("the NTT kernels take primes below 2^30")
         if device not in self._mont:
             q = self.q[:, None]
             self._mont[device] = {
@@ -96,7 +142,7 @@ class NTTTables:
 
 
 # ------------------------------------------------------------ plain version
-def ntt_fwd_plain(x, twist, tw, q):
+def ntt_dif_plain(x, twist, tw, q):
     """DIF forward NTT. x: (..., l, N) int64 natural coefficients;
     twist/tw: (l, N) normal-form tables; q: (l,).  Bit-reversed output."""
     n = x.shape[-1]
@@ -116,7 +162,7 @@ def ntt_fwd_plain(x, twist, tw, q):
     return x
 
 
-def ntt_inv_plain(x, twist, tw, q):
+def ntt_dit_plain(x, twist, tw, q):
     """DIT inverse NTT: bit-reversed eval -> natural coefficients;
     twist = psi^-i * n^-1."""
     n = x.shape[-1]
@@ -131,6 +177,18 @@ def ntt_inv_plain(x, twist, tw, q):
         x = torch.cat([(u + vw) % q3, (u + q3 - vw) % q3], dim=-1
                       ).reshape(*lead, n)
     return x * twist % q[:, None]
+
+
+def ntt_fwd_plain(x, twist, tw, q):
+    """Natural coefficients -> natural eval order: DIF, then the gather."""
+    return ntt_dif_plain(x, twist, tw, q)[
+        ..., bitrev_index(x.shape[-1], x.device)]
+
+
+def ntt_inv_plain(x, twist, tw, q):
+    """Natural eval order -> natural coefficients: the gather, then DIT."""
+    return ntt_dit_plain(x[..., bitrev_index(x.shape[-1], x.device)],
+                         twist, tw, q)
 
 
 # ------------------------------------------------------------ wrappers
@@ -152,26 +210,28 @@ def _ntt(x, primes, tabs: NTTTables, inverse: bool):
     native.check_cuda("ntt", x)
     t = tabs.mont_tables(x.device)
     d = "i" if inverse else "f"
+    rows = x.numel() // n
     y = torch.empty_like(x)
-    work = (torch.empty(x.shape, dtype=torch.int32, device=x.device)
-            if tabs.logn > CHUNK_BITS else None)
+    fn = "ntt_inverse" if inverse else "ntt_forward"
     native.call(
-        "ntt", "ntt_inverse" if inverse else "ntt_forward",
-        native.ptr(x), native.ptr(y), native.ptr(work),
+        "ntt", fn,
+        native.ptr(x), native.ptr(y),
         native.ptr(t[f"twist_{d}"]), native.ptr(t[f"tw_{d}"]),
         native.ptr(tabs.row_map(primes, x.device)),
         native.ptr(t["q"]), native.ptr(t["qn"]),
-        x.numel() // n, len(primes), tabs.logn,
+        rows, len(primes), tabs.logn,
+        cluster_bits(tabs.logn, rows, sm_count(x.device)),
+        shape=(fn, tuple(x.shape)),
     )
     return y
 
 
 def ntt_fwd(x, primes, tabs: NTTTables):
-    """(..., l, N) int64 natural coefficients -> bit-reversed eval order.
+    """(..., l, N) int64 natural coefficients -> natural eval order.
     ``primes`` may repeat (batched multi-poly transforms tile the limbs)."""
     return _ntt(x, primes, tabs, inverse=False)
 
 
 def ntt_inv(x, primes, tabs: NTTTables):
-    """(..., l, N) int64 bit-reversed eval -> natural coefficients."""
+    """(..., l, N) int64 natural eval order -> natural coefficients."""
     return _ntt(x, primes, tabs, inverse=True)

@@ -11,13 +11,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core.params import CKKSParams  # noqa: E402
+from repro_torch.core.params import PAPER_PARAMS, CKKSParams  # noqa: E402
 from repro_torch.core.rns import RNSContext  # noqa: E402
+from repro_torch.kernels import native  # noqa: E402
 from repro_torch.kernels.bconv.ops import BConvConsts, bconv, bconv_plain  # noqa: E402
 from repro_torch.kernels.fused_ip.ops import IPConsts, fused_ip, fused_ip_plain  # noqa: E402
-from repro_torch.kernels.modup.ops import (  # noqa: E402
-    ModUpDigitConsts, modup_digit, modup_digit_plain,
-)
+from repro_torch.kernels.modup.ops import ModUpConsts, modup, modup_plain  # noqa: E402
 from repro_torch.kernels.ntt.ops import (  # noqa: E402
     NTTTables, ntt_fwd, ntt_fwd_plain, ntt_inv, ntt_inv_plain,
 )
@@ -39,8 +38,8 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("logn", [8, 12])
 def test_cuda_kernels_equal_plain(cuda, logn):
-    """Every kernel against its plain version on the card, both NTT
-    launch layouts (one launch at logN <= 11, two above)."""
+    """Every kernel against its plain version on the card, the all-digit
+    ModUp at an even and at a short last digit."""
     p = CKKSParams(logN=logn, L=4, alpha=2, k=3, q_bits=29)
     rns = RNSContext(p)
     tabs = NTTTables(rns)
@@ -61,11 +60,79 @@ def test_cuda_kernels_equal_plain(cuda, logn):
     pt = _res(rng, ext, (3, len(ext), p.N)).to(cuda)
     assert torch.equal(fused_ip(dig, evk, pt, ipc),
                        fused_ip_plain(dig, evk, pt, ipc.q))
-    for D in p.digit_groups(4):
-        mc = ModUpDigitConsts(rns, tabs, D, ext, cuda)
-        xd = _res(rng, D, (2, len(D), p.N)).to(cuda)
-        assert torch.equal(modup_digit(xd, mc),
-                           modup_digit_plain(xd, **mc.plain()))
+    for level in (4, 3):  # digits (2, 2, 1) and (2, 2)
+        chain = p.q_chain(level)
+        mc = ModUpConsts(rns, tabs, p.digit_groups(level), chain,
+                         chain + p.p_primes, cuda)
+        xd = _res(rng, chain, (2, len(chain), p.N)).to(cuda)
+        assert torch.equal(modup(xd, mc), modup_plain(xd, mc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logn", [10, 12, 14, 16])
+def test_cuda_ntt_natural_order(cuda, logn):
+    """One launch a call, natural order at both ends, equal to the plain
+    version: unbatched, batched and with repeated primes, on one block a
+    row (logN <= 13) and on clusters of 2, 4 (logN 14) and 8 (logN 16)."""
+    p = CKKSParams(logN=logn, L=5, alpha=2, k=2, q_bits=29)
+    tabs = NTTTables(RNSContext(p))
+    rng = np.random.default_rng(logn)
+    base = p.q_chain(p.L)
+    tiled = base + p.p_primes + base[:2]
+    cases = [(base, ()), (base, (2,)), (tiled, (3,)), (base[:1], (12,)),
+             (base[:1], (40,))]
+    for primes, lead in cases:
+        x = _res(rng, primes, lead + (len(primes), p.N)).to(cuda)
+        before = native.LAUNCHES["ntt"]
+        f = ntt_fwd(x, primes, tabs)
+        assert torch.equal(f, ntt_fwd_plain(
+            x, *tabs.plain_rows(primes, cuda, False)))
+        assert torch.equal(ntt_inv(f, primes, tabs), x)
+        assert torch.equal(ntt_inv(x, primes, tabs), ntt_inv_plain(
+            x, *tabs.plain_rows(primes, cuda, True)))
+        assert native.LAUNCHES["ntt"] == before + 3
+
+
+@pytest.mark.cuda
+def test_cuda_modup_all_paper_level(cuda):
+    """The all-digit ModUp at the paper's logN = 16, level 35 (digits of
+    12) and level 34 (12, 12, 11), one wrapper call each."""
+    P = PAPER_PARAMS
+    rns = RNSContext(P)
+    tabs = NTTTables(rns)
+    rng = np.random.default_rng(35)
+    for level, batch in ((35, ()), (34, (2,))):
+        chain = P.q_chain(level)
+        mc = ModUpConsts(rns, tabs, P.digit_groups(level), chain,
+                         chain + P.p_primes, cuda)
+        x = _res(rng, chain, batch + (len(chain), P.N)).to(cuda)
+        before = native.LAUNCHES["modup"]
+        got = modup(x, mc)
+        assert native.LAUNCHES["modup"] == before + 1
+        assert torch.equal(got, modup_plain(x, mc))
+
+
+@pytest.mark.cuda
+def test_cuda_refused_launch_raises(cuda):
+    """A shape the kernel does not take, or a cluster size it does not
+    launch, raises at the call; nothing falls back."""
+    p = CKKSParams(logN=4, L=1, alpha=1, k=1, q_bits=29)
+    tabs = NTTTables(RNSContext(p))
+    x = torch.zeros((2, p.N), dtype=torch.int64, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ntt_fwd(x, p.q_chain(1), tabs)
+    p = CKKSParams(logN=12, L=1, alpha=1, k=1, q_bits=29)
+    tabs = NTTTables(RNSContext(p))
+    x = torch.zeros((2, p.N), dtype=torch.int64, device=cuda)
+    y = torch.empty_like(x)
+    t = tabs.mont_tables(cuda)
+    for logc in (4, 8):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            native.call("ntt", "ntt_forward", x.data_ptr(), y.data_ptr(),
+                        t["twist_f"].data_ptr(), t["tw_f"].data_ptr(),
+                        tabs.row_map(p.q_chain(1), cuda).data_ptr(),
+                        t["q"].data_ptr(), t["qn"].data_ptr(), 2, 2,
+                        p.logN, logc)
 
 
 @pytest.mark.cuda

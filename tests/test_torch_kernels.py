@@ -32,10 +32,10 @@ from repro_torch.kernels import modops  # noqa: E402
 from repro_torch.kernels.bconv.ops import BConvConsts, bconv, bconv_plain  # noqa: E402
 from repro_torch.kernels.fused_ip.ops import IPConsts, fused_ip, fused_ip_plain  # noqa: E402
 from repro_torch.kernels.modup.ops import (  # noqa: E402
-    ModUpDigitConsts, modup_digit, modup_digit_plain,
+    ModUpDigitConsts, modup_digit_plain,
 )
 from repro_torch.kernels.ntt.ops import (  # noqa: E402
-    NTTTables, ntt_fwd, ntt_fwd_plain, ntt_inv, ntt_inv_plain,
+    NTTTables, cluster_bits, ntt_fwd, ntt_fwd_plain, ntt_inv, ntt_inv_plain,
 )
 
 
@@ -98,6 +98,13 @@ def ntt_case():
     return tables_for(rp), NTTTables(RNSContext(tp)), tp
 
 
+@pytest.fixture(scope="module")
+def bitrev(ntt_case):
+    """The JAX engine's bridge between its kernels' bit-reversed order and
+    natural order (``KeyswitchPlan.bitrev``, from the reference RNS)."""
+    return RefRNS(RefParams(logN=8, L=3, alpha=2, k=2, q_bits=29)).bitrev
+
+
 def test_ntt_tables_equal_reference(ntt_case):
     ref, port, _ = ntt_case
     for name in ("tw_f", "tw_i", "twist_f", "twist_i"):
@@ -106,7 +113,10 @@ def test_ntt_tables_equal_reference(ntt_case):
 
 
 @pytest.mark.parametrize("batch", [None, 3])
-def test_ntt_plain_vs_oracle(ntt_case, batch):
+def test_ntt_plain_vs_oracle(ntt_case, bitrev, batch):
+    """Natural order at both ends: the forward equals the reference's
+    oracle after the engine's bit-reversal bridge, the inverse takes the
+    natural order back to the coefficients."""
     ref, port, p = ntt_case
     primes = p.q_chain(p.L)
     rng = np.random.default_rng(7)
@@ -117,28 +127,42 @@ def test_ntt_plain_vs_oracle(ntt_case, batch):
     rows = [x] if batch is None else list(x)
     f_rows = [fwd] if batch is None else list(fwd)
     for xr, fr in zip(rows, f_rows):
-        _eq(fr, ntt_fwd_oracle(jnp.asarray(xr), primes, ref))
+        _eq(fr, np.asarray(ntt_fwd_oracle(jnp.asarray(xr), primes,
+                                          ref))[..., bitrev])
+        br = np.asarray(fr)[..., bitrev].astype(np.uint32)
         _eq(ntt_inv(fr, primes, port),
-            ntt_inv_oracle(jnp.asarray(np.asarray(fr, np.uint32)), primes,
-                           ref))
+            ntt_inv_oracle(jnp.asarray(br), primes, ref))
     _eq(inv, x)
 
 
-def test_ntt_repeated_primes_and_pallas_interpret(ntt_case):
+def test_ntt_repeated_primes_and_pallas_interpret(ntt_case, bitrev):
     """Tiled primes (two polys in one call) and the Pallas kernel in
-    interpret mode give the same rows."""
+    interpret mode, bridged to natural order, give the same rows."""
     ref, port, p = ntt_case
     primes = p.q_chain(p.L) + p.p_primes
     tiled = primes * 2
     rng = np.random.default_rng(8)
     x = _res(rng, tiled, (len(tiled), p.N))
     got = ntt_fwd(_t(x), tiled, port)
-    _eq(got, ref_ntt_fwd(jnp.asarray(x), tiled, ref, interpret=True))
+    _eq(got, np.asarray(ref_ntt_fwd(jnp.asarray(x), tiled, ref,
+                                    interpret=True))[..., bitrev])
     twist, tw, q = port.plain_rows(tiled, "cpu", inverse=False)
     assert torch.equal(got, ntt_fwd_plain(_t(x), twist, tw, q))
     twist, tw, q = port.plain_rows(tiled, "cpu", inverse=True)
-    assert torch.equal(ntt_inv(got, tiled, port),
-                       ntt_inv_plain(got, twist, tw, q))
+    back = ntt_inv(got, tiled, port)
+    assert torch.equal(back, ntt_inv_plain(got, twist, tw, q))
+    _eq(back, x)
+
+
+@pytest.mark.parametrize("logn,rows,sms,want", [
+    (10, 4, 132, 0), (12, 8, 132, 0), (13, 1, 132, 0), (14, 1, 132, 2),
+    (14, 100, 132, 1), (15, 8, 132, 3), (15, 100, 132, 2), (16, 72, 132, 3),
+    (16, 24, 132, 3), (17, 2, 132, 3),
+])
+def test_cluster_bits_per_shape(logn, rows, sms, want):
+    """A row is spread over as few blocks as hold it at 2^13 words each,
+    one split more when the rows would leave SMs idle."""
+    assert cluster_bits(logn, rows, sms) == want
 
 
 def test_wrappers_raise_off_cpu_without_kernel(ntt_case):
@@ -265,8 +289,7 @@ def test_modup_plain_vs_oracle(modup_case, level):
         for batch in (None, 2):
             shape = (len(D), p.N) if batch is None else (batch, len(D), p.N)
             x = _res(rng, D, shape)
-            got = modup_digit(_t(x), c)
-            assert torch.equal(got, modup_digit_plain(_t(x), **c.plain()))
+            got = modup_digit_plain(_t(x), **c.plain())
             rows = [x] if batch is None else list(x)
             g_rows = [got] if batch is None else list(got)
             for xr, gr in zip(rows, g_rows):
@@ -288,5 +311,5 @@ def test_modup_consts_and_pallas_interpret(modup_case):
                                   ref.twist_i_scaled.astype(np.int64))
     np.testing.assert_array_equal(c.qhat_mod_np, ref.qhat_mod.astype(np.int64))
     x = _res(np.random.default_rng(1), D, (len(D), p.N))
-    _eq(modup_digit(_t(x), c),
+    _eq(modup_digit_plain(_t(x), **c.plain()),
         ref_modup_digit(jnp.asarray(x), D, ext, rtabs, rrns, interpret=True))
