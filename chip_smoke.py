@@ -11,9 +11,11 @@ exits non-zero):
   2. kernels each kernel at the paper shapes (logN=16, level 35: l=36,
              k=12, l_ext=48, dnum=3, alpha=12) against its plain PyTorch
              version on the same inputs, exact integer equality; median
-             kernel and plain times from CUDA events, the CUDA launches
-             one wrapper call makes and the cluster size it picks; the
-             NTT in both directions, ModUp over all digits (``modup_all``);
+             kernel and plain times from CUDA events; the CUDA launches
+             one wrapper call makes, as torch.profiler sees them on the
+             device (they must equal the library's own launch log), and
+             the cluster dimension of each, from that log; the NTT in
+             both directions, ModUp over all digits (``modup_all``);
   3. main    ``CKKSContext(PAPER_PARAMS, device="cuda")``: encrypt two
              slot vectors, multiply (relin + rescale), rotate by 1 and 5,
              a hoisted rotation sum over 4 steps with plaintexts,
@@ -21,7 +23,8 @@ exits non-zero):
              MAX_ERR, and residue for residue against the same seeded
              program on the CPU (the plain versions); every kernel's
              launch count must rise, ModUp's by one per keyswitch that
-             needs one (MODUPS);
+             needs one (MODUPS), and each library's CUDA launches must be
+             what its wrapper calls make: one a call, two for ModUp;
   4. parity  the same program at N = 2^16 on a short chain (L=7,
              alpha=3, k=3) on the card and on the CPU, identical residues
              after every op.
@@ -33,7 +36,6 @@ before printing any result.
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -54,38 +56,33 @@ SEED = 2026
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3, bytes/s
 PEAK_OPS = 67e12        # H100 SXM 32-bit rate outside the tensor cores
 MONT_OPS = 3            # 32-bit multiplies per Montgomery product
-SPIN_CYCLES = 20_000_000  # ~10 ms of the card's clock: covers 10 enqueues
+SPIN_CYCLES = 2_000_000  # ~1 ms of the card's clock
 # ModUps of ``program``: the multiply's relinearization, two rotations,
 # the hoisted sum (one for all its rotations) and the conjugation
 MODUPS = 5
+# CUDA launches per wrapper call, by library
+CUDA_PER_CALL = {"ntt": 1, "bconv": 1, "fused_ip": 1, "modup": 2}
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, reps: int = 10, batches: int = 5, hide_host: bool = True
-            ) -> float:
-    """Median over ``batches`` of the mean time of ``reps`` back-to-back
-    calls, from CUDA events, after a warm-up.  With ``hide_host`` the
-    stream first runs a spin kernel long enough for the host to enqueue
-    all ``reps`` calls, so that a wrapper's host time (tens of
-    microseconds) does not stand in for a shorter kernel's device time."""
-    fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(batches):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        if hide_host:
-            torch.cuda._sleep(SPIN_CYCLES)
-        s.record()
-        for _ in range(reps):
-            fn()
-        e.record()
-        e.synchronize()
-        out.append(s.elapsed_time(e) / reps)
-    return statistics.median(out)
+def device_kernels(fn) -> int:
+    """Kernels that torch.profiler sees run on the device during one
+    ``fn()``; copies, fills and the spin kernels around it are not
+    counted.  A spin kernel of ~1 ms on each side keeps ``fn``'s kernels
+    away from the edges of the profiler's window."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(SPIN_CYCLES)
+        fn()
+        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "spin_kernel" not in e.key
+               and not e.key.startswith(("Memcpy", "Memset")))
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -117,14 +114,15 @@ def phase_build(native) -> str:
 
 
 # ------------------------------------------------------------------ phase 2
-def phase_kernels(P) -> dict:
+def phase_kernels(P, native) -> dict:
     from repro_torch.core.poly import PolyContext
     from repro_torch.kernels.bconv.ops import BConvConsts, bconv, bconv_plain
     from repro_torch.kernels.fused_ip.ops import IPConsts, fused_ip, fused_ip_plain
     from repro_torch.kernels.modup.ops import ModUpConsts, modup, modup_plain
     from repro_torch.kernels.ntt.ops import (
-        cluster_bits, ntt_fwd, ntt_fwd_plain, ntt_inv, ntt_inv_plain, sm_count,
+        ntt_fwd, ntt_fwd_plain, ntt_inv, ntt_inv_plain,
     )
+    from repro_torch.kernels.timing import cuda_ms
 
     dev = torch.device("cuda")
     pc = PolyContext(P, device=dev)
@@ -136,49 +134,56 @@ def phase_kernels(P) -> dict:
     l, k, l_ext = len(base), P.k, len(ext)
     groups = P.digit_groups(level)
     dnum = len(groups)
-    sms = sm_count(dev)
     out = {}
 
-    def record(name, kern, plain, nbytes, ops, shape, cuda_launches,
-               cluster):
+    def record(name, lib, kern, plain, nbytes, ops, shape):
         got, exp = kern(), plain()
         torch.cuda.synchronize()
         err = int((got - exp).abs().max())
         if not torch.equal(got, exp):
             raise AssertionError(f"{name}: kernel != plain at {shape}, "
                                  f"max abs err {err}")
+        # one more call, watched by the profiler and by the library's log;
+        # a session that sees no kernel at all (the profiler has lost
+        # its records on the H100) is repeated, at most 3 times
+        for sessions in range(1, 4):
+            native.launch_log(lib)
+            cuda_launches = device_kernels(kern)
+            logged, cluster = native.launch_log(lib)
+            if cuda_launches:
+                break
+        if cuda_launches != logged:
+            raise AssertionError(f"{name}: the profiler saw {cuda_launches} "
+                                 f"kernels, the library logged {logged}")
         b, by = bound(nbytes, ops)
         out[name] = {"max_abs_err": err, "ms": cuda_ms(kern),
                      "plain_ms": cuda_ms(plain, reps=2, batches=3,
                                          hide_host=False),
                      "bound_ms": b, "bound_by": by, "library_ms": None,
                      "shape": shape, "cuda_launches": cuda_launches,
-                     "cluster": cluster}
+                     "cluster": cluster, "profiler_sessions": sessions}
 
     # NTT: the ModDown forward transform of both accumulators, 2 x l rows
     x = residues(rng, base, (2, l, N), dev)
     tabs = pc.tabs
     fwd_tables = tabs.plain_rows(base, dev, inverse=False)
-    record("ntt", lambda: ntt_fwd(x, base, tabs),
+    record("ntt", "ntt", lambda: ntt_fwd(x, base, tabs),
            lambda: ntt_fwd_plain(x, *fwd_tables),
            2 * 2 * l * N * 8 + 2 * l * N * 4,
-           MONT_OPS * 2 * l * N * (1 + logn / 2), [2, l, N], 1,
-           1 << cluster_bits(logn, 2 * l, sms))
+           MONT_OPS * 2 * l * N * (1 + logn / 2), [2, l, N])
     # and the ModDown inverse transform of the P limbs, 2 x k rows
     xp = residues(rng, P.p_primes, (2, k, N), dev)
     inv_tables = tabs.plain_rows(P.p_primes, dev, inverse=True)
-    record("ntt_inverse", lambda: ntt_inv(xp, P.p_primes, tabs),
+    record("ntt_inverse", "ntt", lambda: ntt_inv(xp, P.p_primes, tabs),
            lambda: ntt_inv_plain(xp, *inv_tables),
            2 * 2 * k * N * 8 + 2 * k * N * 4,
-           MONT_OPS * 2 * k * N * (1 + logn / 2), [2, k, N], 1,
-           1 << cluster_bits(logn, 2 * k, sms))
+           MONT_OPS * 2 * k * N * (1 + logn / 2), [2, k, N])
 
     # BConv: ModDown P -> Q of both accumulators
     c = BConvConsts(pc.rns, P.p_primes, base, dev)
-    record("bconv", lambda: bconv(xp, c),
+    record("bconv", "bconv", lambda: bconv(xp, c),
            lambda: bconv_plain(xp, c.qhat_inv, c.src_q, c.qhat_mod, c.dst_q),
-           2 * (k + l) * N * 8, MONT_OPS * 2 * N * k * (1 + l), [2, k, l, N],
-           1, None)
+           2 * (k + l) * N * 8, MONT_OPS * 2 * N * k * (1 + l), [2, k, l, N])
 
     # fused IP: a hoisted block of 4 rotations with plaintexts
     R = 4
@@ -186,11 +191,11 @@ def phase_kernels(P) -> dict:
     dig = residues(rng, ext, (R, dnum, l_ext, N), dev)
     evk = residues(rng, ext, (R, dnum, 2, l_ext, N), dev)
     pt = residues(rng, ext, (R, l_ext, N), dev)
-    record("fused_ip", lambda: fused_ip(dig, evk, pt, ipc),
+    record("fused_ip", "fused_ip", lambda: fused_ip(dig, evk, pt, ipc),
            lambda: fused_ip_plain(dig, evk, pt, ipc.q),
            (R * dnum + 2 * R * dnum + R + 2) * l_ext * N * 8,
            MONT_OPS * l_ext * N * (2 * R * dnum + 2 * R + 2),
-           [R, dnum, l_ext, N], 1, None)
+           [R, dnum, l_ext, N])
 
     # ModUp of every digit of one level-35 polynomial (B = 1): int64 in
     # and out, the inverse tables of the l source limbs and the forward
@@ -198,14 +203,13 @@ def phase_kernels(P) -> dict:
     mc = ModUpConsts(pc.rns, tabs, groups, base, ext, dev)
     xm = residues(rng, base, (l, N), dev)
     sizes = [len(D) for D in groups]
-    record("modup_all", lambda: modup(xm, mc), lambda: modup_plain(xm, mc),
+    record("modup_all", "modup", lambda: modup(xm, mc),
+           lambda: modup_plain(xm, mc),
            l * N * 8 + dnum * l_ext * N * 8 + 2 * l * N * 4
            + 2 * l_ext * N * 4,
            MONT_OPS * N * (l * (1 + logn / 2) + sum(
                (l_ext - ls) * (ls + 1 + logn / 2) for ls in sizes)),
-           [l, dnum, l_ext, N], 2,
-           [1 << cluster_bits(logn, l, sms),
-            1 << cluster_bits(logn, dnum * l_ext, sms)])
+           [l, dnum, l_ext, N])
     emit({"phase": "kernels", "results": out})
     return out
 
@@ -330,6 +334,7 @@ def phase_main(P, native) -> dict:
     torch.cuda.synchronize()
     ops_s = time.perf_counter() - t0
     launches = dict(native.LAUNCHES)
+    cuda_launches = {k: native.launch_log(k)[0] for k in launches}
     calls = {f"{fn} {list(shape)}": v
              for (fn, shape), v in sorted(native.CALLS.items())}
     prof = device_profile(lambda: program(ctx, prep))
@@ -349,7 +354,8 @@ def phase_main(P, native) -> dict:
            "bound": MAX_ERR, "setup_s": setup_s, "ops_s": ops_s,
            "op_s": op_s, "ops_event_s": ev0.elapsed_time(ev1) / 1e3,
            "profile": prof,
-           "decrypt_s": decrypt_s, "launches": launches, "calls": calls,
+           "decrypt_s": decrypt_s, "launches": launches,
+           "cuda_launches": cuda_launches, "calls": calls,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     res.update(cpu_replica(P, SEED, outs))
     emit(res)
@@ -366,6 +372,10 @@ def phase_main(P, native) -> dict:
     if launches["modup"] != MODUPS:
         raise AssertionError(f"{launches['modup']} ModUp calls, expected "
                              f"{MODUPS}: one per keyswitch that needs one")
+    for k, n in cuda_launches.items():
+        if n != CUDA_PER_CALL[k] * launches[k]:
+            raise AssertionError(f"{k}: {n} CUDA launches for {launches[k]} "
+                                 f"wrapper calls")
     return res
 
 
@@ -392,7 +402,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     smi = phase_build(native)
-    kern = phase_kernels(PAPER_PARAMS)
+    kern = phase_kernels(PAPER_PARAMS, native)
     main_res = phase_main(PAPER_PARAMS, native)
     phase_parity()
     ntt_src = ("src/repro_torch/csrc/ntt.cu", "src/repro/kernels/ntt/ntt.py:70")

@@ -16,6 +16,7 @@
 // once.  Constants are read through the cache (uniform across a warp).
 #include <cuda_runtime.h>
 
+#include "launch_log.cuh"
 #include "modarith.cuh"
 
 using namespace he2;
@@ -63,5 +64,7 @@ extern "C" int bconv(const int64_t* x, int64_t* y, const uint32_t* qhat_inv,
   bconv_kernel<<<blocks, kThreads, 0, st>>>(x, y, qhat_inv, src_q, src_qn, cm,
                                             dst_q, dst_qn, int(ls), int(ld),
                                             int(logn), total);
-  return cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) log_launch(1);
+  return e;
 }

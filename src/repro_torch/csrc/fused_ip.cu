@@ -22,6 +22,7 @@
 // stride 0.
 #include <cuda_runtime.h>
 
+#include "launch_log.cuh"
 #include "modarith.cuh"
 
 using namespace he2;
@@ -78,5 +79,7 @@ extern "C" int fused_ip(const int64_t* digits, const int64_t* evk,
   fused_ip_kernel<<<grid, kThreads, 0, st>>>(digits, evk, pt, out, q, qn, fix,
                                              int(nrot), int(evk_shared),
                                              int(dnum), int(l), int(logn));
-  return cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) log_launch(1);
+  return e;
 }

@@ -34,12 +34,11 @@ extern "C" int modup_all(const int64_t* x, int64_t* y, uint32_t* work,
                          const int32_t* dst_map, const uint32_t* q,
                          const uint32_t* qn, long long batch, long long l,
                          long long l_ext, long long dnum, long long alpha,
-                         long long logn, long long logc_inv,
-                         long long logc_fwd, cudaStream_t st) {
+                         long long logn, long long logc, cudaStream_t st) {
   const NttTables ti{twist_i_scaled, nullptr, tw_i, src_map, q, qn, int(l), int(logn)};
-  int rc = inverse<kDstU32>(ti, batch * l, int(logc_inv), x, nullptr, work, st);
+  int rc = inverse<kDstU32>(ti, batch * l, int(logc), x, nullptr, work, st);
   if (rc != 0) return rc;
   const NttTables tf{twist_f, dst_map, tw_f, dst_map, q, qn, int(l_ext), int(logn)};
   const ModUpArgs mu{work, cm, own, digit, int(l), int(l_ext), int(dnum), int(alpha)};
-  return forward<kSrcModUp>(tf, batch * dnum * l_ext, int(logc_fwd), x, y, mu, st);
+  return forward<kSrcModUp>(tf, batch * dnum * l_ext, int(logc), x, y, mu, st);
 }

@@ -41,3 +41,11 @@ extern "C" int ntt_inverse(const int64_t* x, int64_t* y, const uint32_t* twist,
   const NttTables t{twist, row_map, tw, row_map, q, qn, int(l), int(logn)};
   return inverse<kDstI64>(t, rows, int(logc), x, y, nullptr, st);
 }
+
+#ifdef HE2_PROBE
+// The phase timestamps of the last launches (see PROBE in ntt_device.cuh).
+extern "C" int he2_read_probe(unsigned long long* dst, long long n,
+                              cudaStream_t) {
+  return cudaMemcpyFromSymbol(dst, he2::he2_probe, n * 8);
+}
+#endif

@@ -38,11 +38,31 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "launch_log.cuh"
 #include "modarith.cuh"
 
 namespace he2 {
 
 namespace cg = cooperative_groups;
+
+// Phase timestamps (tools/ntt_study.py builds ntt.cu with -DHE2_PROBE):
+// thread 0 of each block records the global timer at PROBE(i) into
+// he2_probe[block * 8 + i].  Without HE2_PROBE, PROBE(i) is nothing.
+#ifdef HE2_PROBE
+__device__ unsigned long long he2_probe[1 << 16];
+#define PROBE(i)                                                      \
+  do {                                                                \
+    if (threadIdx.x == 0) {                                           \
+      unsigned long long t_;                                          \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));         \
+      he2_probe[blockIdx.x * 8 + (i)] = t_;                           \
+    }                                                                 \
+  } while (0)
+#else
+#define PROBE(i) \
+  do {           \
+  } while (0)
+#endif
 
 constexpr int kMinLogN = 5;
 constexpr int kMaxLogN = 17;
@@ -350,6 +370,7 @@ fwd_kernel(NttTables t, const int64_t* in, int64_t* out, ModUpArgs mu) {
   }
   const Row rt = row_tables(t, row);
   const uint32_t* tws = stage_twiddles(sh, M, rt);
+  PROBE(0);
 
   // load, pre-twist, top LOGC stages, scatter to the owning blocks (once
   // every block of the cluster has started)
@@ -407,9 +428,12 @@ fwd_kernel(NttTables t, const int64_t* in, int64_t* out, ModUpArgs mu) {
   if constexpr (LOGC > 0) {
     if (!waited) cluster_wait();
   }
+  PROBE(1);
   twiddles_ready();
   row_sync<LOGC>();  // every word of the block has arrived
+  PROBE(2);
   local_fwd(sh, tws, logm, rt);
+  PROBE(3);
 
   // natural order out.  Block `rank` holds p = rank M + off, the value of
   // k = bitrev(p) = j C + bitrev_c(rank) with j = bitrev_logm(off); block
@@ -470,6 +494,7 @@ fwd_kernel(NttTables t, const int64_t* in, int64_t* out, ModUpArgs mu) {
     }
     row_sync<LOGC>();  // keep the groups alive for the other blocks
   }
+  PROBE(4);
 }
 
 // ---------------------------------------------------------------- inverse
@@ -490,6 +515,7 @@ inv_kernel(NttTables t, const int64_t* in, int64_t* out64, uint32_t* out32) {
   const int T = blockDim.x;
   const Row rt = row_tables(t, row);
   const uint32_t* tws = stage_twiddles(sh, M, rt);
+  PROBE(0);
 
   if constexpr (LOGC == 0) {
     // bit-reversal on the way in: index k to offset bitrev(k)
@@ -543,8 +569,11 @@ inv_kernel(NttTables t, const int64_t* in, int64_t* out64, uint32_t* out32) {
   }
   twiddles_ready();
   __syncthreads();
+  PROBE(1);
   local_inv(sh, tws, logm, rt);
+  PROBE(2);
   if constexpr (LOGC > 0) row_sync<LOGC>();  // every block's stages are done
+  PROBE(3);
 
   // gather column i from the C blocks, top LOGC stages, post-twist, store
   const int cols = M >> LOGC;
@@ -572,6 +601,7 @@ inv_kernel(NttTables t, const int64_t* in, int64_t* out64, uint32_t* out32) {
       }
     }
   }
+  PROBE(4);
   if constexpr (LOGC > 0) row_sync<LOGC>();  // keep sh alive for readers
 }
 
@@ -613,7 +643,9 @@ int launch_rows(Kern kern, int logn, int logc, int regions, long long rows,
   cfg.numAttrs = logc > 0 ? 1 : 0;
   e = cudaLaunchKernelEx(&cfg, kern, args...);
   if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  e = cudaGetLastError();
+  if (e == cudaSuccess) log_launch(1u << logc);
+  return e;
 }
 
 template <int SRC>

@@ -23,7 +23,7 @@ from repro_torch.kernels import native
 from repro_torch.kernels.modops import as_u32, to_mont_host
 from repro_torch.kernels.ntt.ops import (
     NTTTables, bitrev_index, check_rows, cluster_bits, ntt_dif_plain,
-    ntt_dit_plain, sm_count,
+    ntt_dit_plain,
 )
 
 
@@ -167,7 +167,6 @@ def modup(x: torch.Tensor, c: ModUpConsts) -> torch.Tensor:
     m = c.mont()
     t = c.tabs.mont_tables(x.device)
     batch = x.numel() // (c.l * n)
-    sms = sm_count(x.device)
     y = torch.empty(x.shape[:-2] + (c.dnum, c.l_ext, n), dtype=torch.int64,
                     device=x.device)
     work = torch.empty((batch, c.l, n), dtype=torch.int32, device=x.device)
@@ -178,8 +177,7 @@ def modup(x: torch.Tensor, c: ModUpConsts) -> torch.Tensor:
         native.ptr(m["digit"]), native.ptr(t["twist_f"]),
         native.ptr(t["tw_f"]), native.ptr(m["dst_map"]), native.ptr(t["q"]),
         native.ptr(t["qn"]), batch, c.l, c.l_ext, c.dnum, c.alpha, c.logn,
-        cluster_bits(c.logn, batch * c.l, sms),
-        cluster_bits(c.logn, batch * c.dnum * c.l_ext, sms),
+        cluster_bits(c.logn),
         shape=("modup_all", tuple(x.shape)),
     )
     return y

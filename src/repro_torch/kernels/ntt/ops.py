@@ -30,30 +30,13 @@ MAX_CLUSTER_BITS = 3
 MAX_PRIME = 1 << 30
 
 
-def cluster_bits(logn: int, rows: int, sms: int) -> int:
-    """log2 of the blocks a row is spread over.
-
-    As few as hold the row at 2^13 words a block (one block up to
-    logN = 13, eight at logN = 16), and one split more while that leaves
-    fewer blocks than the card has SMs (``sms``).  At logN = 16 every
-    shape gets clusters of 8: the card ran the paper's forward
-    (2 x 36 rows), inverse (2 x 12 rows) and ModUp faster with 8 blocks
-    a row than with 4 (PERF.md, ``tools/ntt_study.py``)."""
-    c = min(MAX_CLUSTER_BITS, max(0, logn - MAX_BLOCK_BITS))
-    if 0 < c < MAX_CLUSTER_BITS and (rows << c) < sms:
-        c += 1
-    return c
-
-
-_SMS: dict[torch.device, int] = {}
-
-
-def sm_count(device) -> int:
-    device = torch.device(device)
-    if device not in _SMS:
-        _SMS[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return _SMS[device]
+def cluster_bits(logn: int) -> int:
+    """log2 of the blocks a row is spread over: as few as hold the row
+    at 2^13 words a block (one block up to logN = 13, eight at
+    logN = 16).  At logN = 16, clusters of 8 ran the paper's forward
+    (2 x 36 rows), inverse (2 x 12 rows) and ModUp faster than clusters
+    of 4 (PERF.md, ``tools/ntt_study.py``)."""
+    return min(MAX_CLUSTER_BITS, max(0, logn - MAX_BLOCK_BITS))
 
 
 _BITREV: dict[tuple, torch.Tensor] = {}
@@ -220,7 +203,7 @@ def _ntt(x, primes, tabs: NTTTables, inverse: bool):
         native.ptr(tabs.row_map(primes, x.device)),
         native.ptr(t["q"]), native.ptr(t["qn"]),
         rows, len(primes), tabs.logn,
-        cluster_bits(tabs.logn, rows, sm_count(x.device)),
+        cluster_bits(tabs.logn),
         shape=(fn, tuple(x.shape)),
     )
     return y

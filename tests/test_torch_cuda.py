@@ -18,7 +18,7 @@ from repro_torch.kernels.bconv.ops import BConvConsts, bconv, bconv_plain  # noq
 from repro_torch.kernels.fused_ip.ops import IPConsts, fused_ip, fused_ip_plain  # noqa: E402
 from repro_torch.kernels.modup.ops import ModUpConsts, modup, modup_plain  # noqa: E402
 from repro_torch.kernels.ntt.ops import (  # noqa: E402
-    NTTTables, ntt_fwd, ntt_fwd_plain, ntt_inv, ntt_inv_plain,
+    NTTTables, cluster_bits, ntt_fwd, ntt_fwd_plain, ntt_inv, ntt_inv_plain,
 )
 
 
@@ -69,11 +69,12 @@ def test_cuda_kernels_equal_plain(cuda, logn):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("logn", [10, 12, 14, 16])
+@pytest.mark.parametrize("logn", [10, 12, 14, 15, 16])
 def test_cuda_ntt_natural_order(cuda, logn):
-    """One launch a call, natural order at both ends, equal to the plain
-    version: unbatched, batched and with repeated primes, on one block a
-    row (logN <= 13) and on clusters of 2, 4 (logN 14) and 8 (logN 16)."""
+    """One CUDA launch a call, natural order at both ends, equal to the
+    plain version: unbatched, batched and with repeated primes, on one
+    block a row (logN <= 13) and on clusters of 2 (logN 14), 4 (logN 15)
+    and 8 (logN 16), as the library's own launch log reports."""
     p = CKKSParams(logN=logn, L=5, alpha=2, k=2, q_bits=29)
     tabs = NTTTables(RNSContext(p))
     rng = np.random.default_rng(logn)
@@ -81,13 +82,18 @@ def test_cuda_ntt_natural_order(cuda, logn):
     tiled = base + p.p_primes + base[:2]
     cases = [(base, ()), (base, (2,)), (tiled, (3,)), (base[:1], (12,)),
              (base[:1], (40,))]
+    cluster = 1 << cluster_bits(logn)
     for primes, lead in cases:
         x = _res(rng, primes, lead + (len(primes), p.N)).to(cuda)
         before = native.LAUNCHES["ntt"]
+        native.build_all()
+        native.launch_log("ntt")
         f = ntt_fwd(x, primes, tabs)
+        assert native.launch_log("ntt") == (1, [cluster])
         assert torch.equal(f, ntt_fwd_plain(
             x, *tabs.plain_rows(primes, cuda, False)))
         assert torch.equal(ntt_inv(f, primes, tabs), x)
+        assert native.launch_log("ntt") == (1, [cluster])
         assert torch.equal(ntt_inv(x, primes, tabs), ntt_inv_plain(
             x, *tabs.plain_rows(primes, cuda, True)))
         assert native.LAUNCHES["ntt"] == before + 3
@@ -96,7 +102,8 @@ def test_cuda_ntt_natural_order(cuda, logn):
 @pytest.mark.cuda
 def test_cuda_modup_all_paper_level(cuda):
     """The all-digit ModUp at the paper's logN = 16, level 35 (digits of
-    12) and level 34 (12, 12, 11), one wrapper call each."""
+    12) and level 34 (12, 12, 11), one wrapper call each, two CUDA
+    launches in clusters of 8."""
     P = PAPER_PARAMS
     rns = RNSContext(P)
     tabs = NTTTables(rns)
@@ -107,15 +114,20 @@ def test_cuda_modup_all_paper_level(cuda):
                          chain + P.p_primes, cuda)
         x = _res(rng, chain, batch + (len(chain), P.N)).to(cuda)
         before = native.LAUNCHES["modup"]
+        native.build_all()
+        native.launch_log("modup")
         got = modup(x, mc)
         assert native.LAUNCHES["modup"] == before + 1
+        assert native.launch_log("modup") == (2, [8, 8])
         assert torch.equal(got, modup_plain(x, mc))
 
 
 @pytest.mark.cuda
 def test_cuda_refused_launch_raises(cuda):
     """A shape the kernel does not take, or a cluster size it does not
-    launch, raises at the call; nothing falls back."""
+    launch, raises at the call; nothing falls back, nothing is launched."""
+    native.build_all()
+    native.launch_log("ntt")
     p = CKKSParams(logN=4, L=1, alpha=1, k=1, q_bits=29)
     tabs = NTTTables(RNSContext(p))
     x = torch.zeros((2, p.N), dtype=torch.int64, device=cuda)
@@ -133,6 +145,7 @@ def test_cuda_refused_launch_raises(cuda):
                         tabs.row_map(p.q_chain(1), cuda).data_ptr(),
                         t["q"].data_ptr(), t["qn"].data_ptr(), 2, 2,
                         p.logN, logc)
+    assert native.launch_log("ntt") == (0, [])
 
 
 @pytest.mark.cuda

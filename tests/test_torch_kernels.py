@@ -154,15 +154,14 @@ def test_ntt_repeated_primes_and_pallas_interpret(ntt_case, bitrev):
     _eq(back, x)
 
 
-@pytest.mark.parametrize("logn,rows,sms,want", [
-    (10, 4, 132, 0), (12, 8, 132, 0), (13, 1, 132, 0), (14, 1, 132, 2),
-    (14, 100, 132, 1), (15, 8, 132, 3), (15, 100, 132, 2), (16, 72, 132, 3),
-    (16, 24, 132, 3), (17, 2, 132, 3),
+@pytest.mark.parametrize("logn,want", [
+    (5, 0), (8, 0), (10, 0), (11, 0), (12, 0), (13, 0), (14, 1), (15, 2),
+    (16, 3), (17, 3),
 ])
-def test_cluster_bits_per_shape(logn, rows, sms, want):
+def test_cluster_bits_per_shape(logn, want):
     """A row is spread over as few blocks as hold it at 2^13 words each,
-    one split more when the rows would leave SMs idle."""
-    assert cluster_bits(logn, rows, sms) == want
+    at most eight."""
+    assert cluster_bits(logn) == want
 
 
 def test_wrappers_raise_off_cpu_without_kernel(ntt_case):

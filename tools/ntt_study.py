@@ -13,24 +13,22 @@ Needs a CUDA card.  Prints one JSON line per measurement:
     checked), and a device copy of the forward's int64 input as a
     yardstick for the memory;
   * ``phases``: where one forward and one inverse launch spend their
-    time, from device timestamps that thread 0 of each block records at
-    the phase boundaries of an instrumented copy of the sources (built
-    under ``build/ntt_study``; the repository's sources are not touched).
-
+    time, from the device timestamps that ``ntt.cu`` built with
+    ``-DHE2_PROBE`` records at the phase boundaries (``PROBE`` in
+    ``csrc/ntt_device.cuh``);
   * ``wrappers`` (with ``--compare``, once for each ``src`` directory
     given, e.g. this tree's and an unpacked older commit's): what the
     engine pays per call, gathers included, for ``poly.ntt`` of
     (2, 36, 2^16), ``poly.intt`` of (2, 12, 2^16) and the engine's
     ``_modup`` at level 35 (B = 1), with the kernel launches each makes.
 
-Times are medians of CUDA-event means, in ms, with the host's enqueueing
-hidden behind a spin kernel; phase times in microseconds.
+Times are ``repro_torch.kernels.timing.cuda_ms`` (medians of CUDA-event
+means, host enqueueing hidden), in ms; phase times in microseconds.
 """
 from __future__ import annotations
 
 import ctypes
 import json
-import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -39,125 +37,28 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
-
-from repro_torch.core.params import PAPER_PARAMS as P  # noqa: E402
-from repro_torch.core.poly import PolyContext  # noqa: E402
-from repro_torch.kernels import native  # noqa: E402
-from repro_torch.kernels.modup.ops import ModUpConsts, modup_plain  # noqa: E402
-from repro_torch.kernels.ntt.ops import ntt_fwd_plain, ntt_inv_plain  # noqa: E402
-
-WORK = ROOT / "build" / "ntt_study"
-# (text in ntt_device.cuh, its instrumented replacement, occurrences)
-PROBES = [
-    ("  const uint32_t* tws = stage_twiddles(sh, M, rt);\n",
-     "  const uint32_t* tws = stage_twiddles(sh, M, rt);\n  probe(0);\n", 2),
-    ("  twiddles_ready();\n  row_sync<LOGC>();  // every word of the block "
-     "has arrived\n",
-     "  probe(1);\n  twiddles_ready();\n  row_sync<LOGC>();\n  probe(2);\n",
-     1),
-    ("  local_fwd(sh, tws, logm, rt);\n",
-     "  local_fwd(sh, tws, logm, rt);\n  probe(3);\n", 1),
-    ("  twiddles_ready();\n  __syncthreads();\n",
-     "  twiddles_ready();\n  __syncthreads();\n  probe(1);\n", 1),
-    ("  local_inv(sh, tws, logm, rt);\n",
-     "  local_inv(sh, tws, logm, rt);\n  probe(2);\n", 1),
-    ("  if constexpr (LOGC > 0) row_sync<LOGC>();  // every block's stages "
-     "are done\n",
-     "  if constexpr (LOGC > 0) row_sync<LOGC>();\n  probe(3);\n", 1),
-]
-PROBE_FN = """
-__device__ unsigned long long he2_probe[1 << 16];
-__device__ __forceinline__ void probe(int i) {
-  if (threadIdx.x == 0) {
-    unsigned long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    he2_probe[blockIdx.x * 8 + i] = t;
-  }
-}
-"""
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, reps: int = 20, batches: int = 5) -> float:
-    fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(batches):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(40_000_000)  # the host enqueues meanwhile
-        s.record()
-        for _ in range(reps):
-            fn()
-        e.record()
-        e.synchronize()
-        out.append(s.elapsed_time(e) / reps)
-    return sorted(out)[len(out) // 2]
-
-
-def build(src_dir: Path, name: str, tag: str = "") -> ctypes.CDLL:
-    WORK.mkdir(parents=True, exist_ok=True)
-    so = WORK / f"{name}{tag}.so"
-    r = subprocess.run([native._nvcc(), *native.NVCC_FLAGS, "-I", str(src_dir),
-                        "-o", str(so), str(src_dir / f"{name}.cu")],
-                       capture_output=True, text=True)
-    if r.returncode:
-        raise RuntimeError(r.stderr[-3000:])
-    return ctypes.CDLL(str(so))
-
-
-def caller(lib):
-    def call(fn, *args):
-        f = getattr(lib, fn)
-        f.restype = ctypes.c_int
-        f.argtypes = [ctypes.c_void_p] * (len(args) + 1)
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = f(*[ctypes.c_void_p(int(a)) for a in args],
-               ctypes.c_void_p(stream))
-        if rc:
-            raise RuntimeError(f"{fn}: CUDA error {rc}")
-    return call
-
-
-def instrumented() -> Path:
-    d = WORK / "csrc"
-    shutil.rmtree(d, ignore_errors=True)
-    shutil.copytree(native.CSRC, d)
-    h = (d / "ntt_device.cuh").read_text()
-    h = h.replace("namespace he2 {\n", "namespace he2 {\n" + PROBE_FN, 1)
-    for marker, probed, count in PROBES:
-        if h.count(marker) != count:
-            raise RuntimeError(f"probe marker not found: {marker!r}")
-        h = h.replace(marker, probed)
-    h = h.replace("\n}\n\n// ------------------------------------------------"
-                  "---------------- inverse",
-                  "\n  probe(4);\n}\n\n// ---------------------------------"
-                  "------------------------------- inverse", 1)
-    h = h.replace("  if constexpr (LOGC > 0) row_sync<LOGC>();  // keep sh "
-                  "alive for readers\n}",
-                  "  probe(4);\n  if constexpr (LOGC > 0) row_sync<LOGC>();"
-                  "  // keep sh alive for readers\n}", 1)
-    (d / "ntt_device.cuh").write_text(h)
-    (d / "ntt.cu").write_text((d / "ntt.cu").read_text() + """
-extern "C" int he2_read_probe(unsigned long long* dst, long long n,
-                              cudaStream_t st) {
-  return cudaMemcpyFromSymbol(dst, he2::he2_probe, n * 8);
-}
-""")
-    return d
+def residues(rng, primes, shape, dev):
+    q = torch.tensor(primes, dtype=torch.int64, device=dev)[:, None]
+    return torch.from_numpy(rng.integers(0, 1 << 62, size=shape,
+                                         dtype=np.int64)).to(dev) % q
 
 
 def wrappers(src: str) -> None:
     """Per-call device time of the engine's NTT and ModUp entry points of
     the ``repro_torch`` package under ``src`` (imported in this process
-    only)."""
-    sys.path.insert(0, str(Path(src).resolve()))
+    only; an older tree may lack ``kernels.timing``, so the timer is this
+    tree's)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.timing import cuda_ms
     for name in [m for m in sys.modules if m.startswith("repro_torch")]:
         del sys.modules[name]
+    sys.path[0] = str(Path(src).resolve())
     from repro_torch.core import poly as tpoly
     from repro_torch.core.keyswitch import KeyswitchEngine
     from repro_torch.core.params import PAPER_PARAMS as PP
@@ -168,16 +69,10 @@ def wrappers(src: str) -> None:
     eng = KeyswitchEngine(pc)
     plan = eng._plan(PP.L)
     rng = np.random.default_rng(2)
-
-    def res(primes, shape):
-        q = torch.tensor(primes, dtype=torch.int64, device=dev)[:, None]
-        return torch.from_numpy(rng.integers(0, 1 << 62, size=shape,
-                                             dtype=np.int64)).to(dev) % q
-
     base = PP.q_chain(PP.L)
-    x = res(base, (2, len(base), PP.N))
-    xp = res(PP.p_primes, (2, PP.k, PP.N))
-    a = res(base, (len(base), PP.N))
+    x = residues(rng, base, (2, len(base), PP.N), dev)
+    xp = residues(rng, PP.p_primes, (2, PP.k, PP.N), dev)
+    a = residues(rng, base, (len(base), PP.N), dev)
     row = {"src": src}
     for name, fn in (("poly.ntt", lambda: tpoly.ntt(x, base, pc)),
                      ("poly.intt", lambda: tpoly.intt(xp, PP.p_primes, pc)),
@@ -188,7 +83,7 @@ def wrappers(src: str) -> None:
         fn()
         row[f"{name} launches"] = {k: v - before[k] for k, v in
                                    tnative.LAUNCHES.items() if v > before[k]}
-        row[f"{name} ms"] = cuda_ms(fn, reps=10)
+        row[f"{name} ms"] = cuda_ms(fn)
     emit({"wrappers": row})
 
 
@@ -208,35 +103,38 @@ def main() -> int:
             if r.returncode:
                 print(r.stderr[-3000:], file=sys.stderr)
                 return r.returncode
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.params import PAPER_PARAMS as P
+    from repro_torch.core.poly import PolyContext
+    from repro_torch.kernels import native
+    from repro_torch.kernels.modup.ops import ModUpConsts, modup_plain
+    from repro_torch.kernels.ntt.ops import ntt_fwd_plain, ntt_inv_plain
+    from repro_torch.kernels.timing import cuda_ms
+
     dev = torch.device("cuda")
     pc = PolyContext(P, device=dev)
     tabs = pc.tabs
     t = tabs.mont_tables(dev)
     N = P.N
     rng = np.random.default_rng(1)
-
-    def res(primes, shape):
-        q = torch.tensor(primes, dtype=torch.int64, device=dev)[:, None]
-        return torch.from_numpy(rng.integers(0, 1 << 62, size=shape,
-                                             dtype=np.int64)).to(dev) % q
-
     base = P.q_chain(P.L)
     ext = base + P.p_primes
     kp = P.p_primes
 
-    def ntt_args(fn, x, y, primes, logc):
+    def ntt(library, fn, x, y, primes, logc):
         d = "i" if fn == "ntt_inverse" else "f"
-        return (fn, x.data_ptr(), y.data_ptr(), t[f"twist_{d}"].data_ptr(),
-                t[f"tw_{d}"].data_ptr(), tabs.row_map(primes, dev).data_ptr(),
-                t["q"].data_ptr(), t["qn"].data_ptr(),
-                x.numel() // N, len(primes), P.logN, logc)
+        return lambda: native.invoke(
+            library, fn, x.data_ptr(), y.data_ptr(),
+            t[f"twist_{d}"].data_ptr(), t[f"tw_{d}"].data_ptr(),
+            tabs.row_map(primes, dev).data_ptr(), t["q"].data_ptr(),
+            t["qn"].data_ptr(), x.numel() // N, len(primes), P.logN, logc)
 
     # ------------------------------------------------------------ sizes
-    call_ntt = caller(build(native.CSRC, "ntt"))
-    call_mu = caller(build(native.CSRC, "modup"))
-    x = res(base, (2, len(base), N))
-    xp = res(kp, (2, P.k, N))
-    x36 = res(base, (len(base), N))
+    lib_ntt, lib_mu = native.lib("ntt"), native.lib("modup")
+    x = residues(rng, base, (2, len(base), N), dev)
+    xp = residues(rng, kp, (2, P.k, N), dev)
+    x36 = residues(rng, base, (len(base), N), dev)
     mc = ModUpConsts(pc.rns, tabs, P.digit_groups(P.L), base, ext, dev)
     m = mc.mont()
     want = {"fwd": ntt_fwd_plain(x, *tabs.plain_rows(base, dev, False)),
@@ -251,22 +149,19 @@ def main() -> int:
         work = torch.empty((1, len(base), N), dtype=torch.int32, device=dev)
 
         def mu(digit):
-            return lambda: call_mu(
-                "modup_all", x36.data_ptr(), ym.data_ptr(), work.data_ptr(),
-                m["twist_i"].data_ptr(), t["tw_i"].data_ptr(),
-                m["src_map"].data_ptr(), m["cm"].data_ptr(),
-                m["own"].data_ptr(), digit.data_ptr(),
+            return lambda: native.invoke(
+                lib_mu, "modup_all", x36.data_ptr(), ym.data_ptr(),
+                work.data_ptr(), m["twist_i"].data_ptr(),
+                t["tw_i"].data_ptr(), m["src_map"].data_ptr(),
+                m["cm"].data_ptr(), m["own"].data_ptr(), digit.data_ptr(),
                 t["twist_f"].data_ptr(), t["tw_f"].data_ptr(),
                 m["dst_map"].data_ptr(), t["q"].data_ptr(),
                 t["qn"].data_ptr(), 1, len(base), len(ext), mc.dnum,
-                mc.alpha, P.logN, logc, logc)
+                mc.alpha, P.logN, logc)
         runs = {
-            "fwd": (lambda: call_ntt(*ntt_args("ntt_forward", x, y, base,
-                                               logc)), y),
-            "inv": (lambda: call_ntt(*ntt_args("ntt_inverse", xp, yp, kp,
-                                               logc)), yp),
-            "inv36": (lambda: call_ntt(*ntt_args("ntt_inverse", x36, y36,
-                                                 base, logc)), y36),
+            "fwd": (ntt(lib_ntt, "ntt_forward", x, y, base, logc), y),
+            "inv": (ntt(lib_ntt, "ntt_inverse", xp, yp, kp, logc), yp),
+            "inv36": (ntt(lib_ntt, "ntt_inverse", x36, y36, base, logc), y36),
             "modup": (mu(m["digit"]), ym),
         }
         row = {"logc": logc}
@@ -275,14 +170,14 @@ def main() -> int:
             torch.cuda.synchronize()
             if not torch.equal(out, want[name]):
                 raise AssertionError(f"{name} at logc {logc} != plain")
-            row[f"{name}_ms"] = cuda_ms(fn)
-        row["modup_one_source_row_ms"] = cuda_ms(mu(one_row))
-        row["copy_fwd_input_ms"] = cuda_ms(lambda: y.copy_(x))
+            row[f"{name}_ms"] = cuda_ms(fn, reps=20)
+        row["modup_one_source_row_ms"] = cuda_ms(mu(one_row), reps=20)
+        row["copy_fwd_input_ms"] = cuda_ms(lambda: y.copy_(x), reps=20)
         emit({"sizes": row})
 
     # ----------------------------------------------------------- phases
-    lib = build(instrumented(), "ntt", "_probed")
-    call = caller(lib)
+    paths, _ = native.compile_libs(["ntt"], defines=("HE2_PROBE",))
+    probed = ctypes.CDLL(str(paths["ntt"]))
     names = {"fwd": ["load+top stages+scatter", "barrier", "local stages",
                      "regroup+exchange+store"],
              "inv": ["load+exchange", "local stages", "barrier",
@@ -291,11 +186,12 @@ def main() -> int:
                                  ("inv", "ntt_inverse", xp, kp)):
         yy = torch.empty_like(xx)
         for _ in range(3):
-            call(*ntt_args(fn, xx, yy, primes, 3))
+            ntt(probed, fn, xx, yy, primes, 3)()
         torch.cuda.synchronize()
         blocks = (xx.numel() // N) << 3
         buf = (ctypes.c_ulonglong * (blocks * 8))()
-        call("he2_read_probe", ctypes.addressof(buf), blocks * 8)
+        native.invoke(probed, "he2_read_probe", ctypes.addressof(buf),
+                      blocks * 8)
         a = np.frombuffer(buf, dtype=np.uint64).reshape(blocks, 8)[:, :5]
         a = a.astype(np.int64)
         start = a[:, 0] - a[:, 0].min()
