@@ -15,7 +15,11 @@ exits non-zero):
              one wrapper call makes, as torch.profiler sees them on the
              device (they must equal the library's own launch log), and
              the cluster dimension of each, from that log; the NTT in
-             both directions, ModUp over all digits (``modup_all``);
+             both directions, BConv at the ModDown (``bconv``) and the
+             rescale (``bconv_rescale``) shapes, also on all-(q-1)
+             residues, ModUp over all digits (``modup_all``); each
+             kernel's bound from its bytes and its multiply results
+             (the integer multiply rate at the card's maximum clock);
   3. main    ``CKKSContext(PAPER_PARAMS, device="cuda")``: encrypt two
              slot vectors, multiply (relin + rescale), rotate by 1 and 5,
              a hoisted rotation sum over 4 steps with plaintexts,
@@ -23,8 +27,10 @@ exits non-zero):
              MAX_ERR, and residue for residue against the same seeded
              program on the CPU (the plain versions); every kernel's
              launch count must rise, ModUp's by one per keyswitch that
-             needs one (MODUPS), and each library's CUDA launches must be
-             what its wrapper calls make: one a call, two for ModUp;
+             needs one (MODUPS), BConv's by MODDOWNS ModDown-shaped and
+             RESCALES rescale-shaped calls, and each library's CUDA
+             launches must be what its wrapper calls make: one a call,
+             two for ModUp;
   4. parity  the same program at N = 2^16 on a short chain (L=7,
              alpha=3, k=3) on the card and on the CPU, identical residues
              after every op.
@@ -36,6 +42,7 @@ before printing any result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -54,12 +61,27 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 MAX_ERR = 64.0
 SEED = 2026
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3, bytes/s
-PEAK_OPS = 67e12        # H100 SXM 32-bit rate outside the tensor cores
-MONT_OPS = 3            # 32-bit multiplies per Montgomery product
+# Operations bound: the modular arithmetic runs on the integer multiply
+# pipe, 64 32-bit multiply results per clock per SM on sm_90 (half the
+# FP32 rate); the peak is that times the SMs times the maximum SM clock
+# (nvidia-smi clocks.max.sm), set in phase_build.  Counted in multiply
+# results: a 32x32->64 product is 2 (low and high halves), a Montgomery
+# reduction 2 more (m = lo * q' and the high half of m * q), so a full
+# Montgomery product is 4.
+INT_MUL_PER_CLOCK_SM = 64
+PRODUCT_OPS = 2
+REDUCE_OPS = 2
+MONT_OPS = PRODUCT_OPS + REDUCE_OPS
+PEAK_OPS = None         # multiply results/s, from the card in phase_build
 SPIN_CYCLES = 2_000_000  # ~1 ms of the card's clock
 # ModUps of ``program``: the multiply's relinearization, two rotations,
 # the hoisted sum (one for all its rotations) and the conjugation
 MODUPS = 5
+# BConv calls of ``program``: one ModDown (P -> Q of both accumulators)
+# per keyswitch, and two rescales (after the multiply and after the
+# hoisted sum) of two polynomials each, one source row -> the rest
+MODDOWNS = 5
+RESCALES = 4
 # CUDA launches per wrapper call, by library
 CUDA_PER_CALL = {"ntt": 1, "bconv": 1, "fused_ip": 1, "modup": 2}
 
@@ -85,6 +107,14 @@ def device_kernels(fn) -> int:
                and not e.key.startswith(("Memcpy", "Memset")))
 
 
+def bconv_ops(batch: int, ls: int, ld: int, n: int, g_acc: int) -> int:
+    """Multiply results of the lazy BConv per column of each batch row:
+    ls scalings (a Montgomery product each), ls * ld products and
+    ld * ceil(ls / g_acc) reductions."""
+    return batch * n * (MONT_OPS * ls + PRODUCT_OPS * ls * ld
+                        + REDUCE_OPS * ld * -(-ls // g_acc))
+
+
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
     tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
@@ -98,18 +128,41 @@ def residues(rng, primes, shape, dev):
 
 
 # ------------------------------------------------------------------ phase 1
-def phase_build(native) -> str:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+def smi_query(fields: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def registers(ptxas: str) -> dict:
+    """{kernel: [registers, spill store bytes]} from ``ptxas -v``, for
+    every kernel function of one library."""
+    out = {}
+    for part in ptxas.split("Compiling entry function '")[1:]:
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores", part)
+        if regs and spill:
+            out[part.split("'")[0]] = [int(regs.group(1)),
+                                       int(spill.group(1))]
+    return out
+
+
+def phase_build(native) -> str:
+    global PEAK_OPS
+    smi = smi_query("name,power.limit")
     print(smi, flush=True)
+    clock_mhz = float(smi_query("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    PEAK_OPS = INT_MUL_PER_CLOCK_SM * sms * clock_mhz * 1e6
     t0 = time.perf_counter()
     report = native.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {k: v["seconds"] for k, v in report.items()},
-          "ptxas": {k: v["ptxas"][-600:] for k, v in report.items()}})
+          "ptxas": {k: v["ptxas"][-600:] for k, v in report.items()},
+          "registers_spills": {k: registers(v["ptxas"])
+                               for k, v in report.items()},
+          "sms": sms, "max_sm_clock_mhz": clock_mhz, "peak_ops": PEAK_OPS})
     return smi
 
 
@@ -136,13 +189,16 @@ def phase_kernels(P, native) -> dict:
     dnum = len(groups)
     out = {}
 
-    def record(name, lib, kern, plain, nbytes, ops, shape):
-        got, exp = kern(), plain()
+    def exact(name, got, exp, shape) -> int:
         torch.cuda.synchronize()
         err = int((got - exp).abs().max())
         if not torch.equal(got, exp):
             raise AssertionError(f"{name}: kernel != plain at {shape}, "
                                  f"max abs err {err}")
+        return err
+
+    def record(name, lib, kern, plain, nbytes, ops, shape):
+        err = exact(name, kern(), plain(), shape)
         # one more call, watched by the profiler and by the library's log;
         # a session that sees no kernel at all (the profiler has lost
         # its records on the H100) is repeated, at most 3 times
@@ -179,11 +235,22 @@ def phase_kernels(P, native) -> dict:
            2 * 2 * k * N * 8 + 2 * k * N * 4,
            MONT_OPS * 2 * k * N * (1 + logn / 2), [2, k, N])
 
-    # BConv: ModDown P -> Q of both accumulators
+    # BConv: ModDown P -> Q of both accumulators, and the rescale's last
+    # prime -> the rest; exact on random and on all-(q-1) residues
     c = BConvConsts(pc.rns, P.p_primes, base, dev)
-    record("bconv", "bconv", lambda: bconv(xp, c),
-           lambda: bconv_plain(xp, c.qhat_inv, c.src_q, c.qhat_mod, c.dst_q),
-           2 * (k + l) * N * 8, MONT_OPS * 2 * N * k * (1 + l), [2, k, l, N])
+    cr = BConvConsts(pc.rns, base[-1:], base[:-1], dev)
+    x1 = residues(rng, base[-1:], (1, N), dev)
+    for name, cc, xx, shape in (("bconv", c, xp, [2, k, l, N]),
+                                ("bconv_rescale", cr, x1, [1, l - 1, N])):
+        top = (cc.src_q[:, None] - 1).expand(xx.shape).contiguous()
+        exact(name, bconv(top, cc), bconv_plain(
+            top, cc.qhat_inv, cc.src_q, cc.qhat_mod, cc.dst_q), shape)
+        batch = xx.numel() // (cc.ls * N)
+        record(name, "bconv", lambda cc=cc, xx=xx: bconv(xx, cc),
+               lambda cc=cc, xx=xx: bconv_plain(
+                   xx, cc.qhat_inv, cc.src_q, cc.qhat_mod, cc.dst_q),
+               batch * (cc.ls + cc.ld) * N * 8,
+               bconv_ops(batch, cc.ls, cc.ld, N, cc.g_acc), shape)
 
     # fused IP: a hoisted block of 4 rotations with plaintexts
     R = 4
@@ -376,7 +443,28 @@ def phase_main(P, native) -> dict:
         if n != CUDA_PER_CALL[k] * launches[k]:
             raise AssertionError(f"{k}: {n} CUDA launches for {launches[k]} "
                                  f"wrapper calls")
+    by_kind = bconv_calls(calls, P.k)
+    if by_kind != {"moddown": MODDOWNS, "rescale": RESCALES, "other": 0} \
+            or launches["bconv"] != MODDOWNS + RESCALES:
+        raise AssertionError(f"bconv calls {by_kind}, expected {MODDOWNS} "
+                             f"ModDown-shaped and {RESCALES} rescale-shaped")
     return res
+
+
+def bconv_calls(calls: dict, k: int) -> dict:
+    """The main path's BConv calls by kind, from ``calls``' shapes
+    ``bconv [..., ls, ld]``: ModDown converts the k P limbs of both
+    accumulators, a rescale one source row."""
+    out = {"moddown": 0, "rescale": 0, "other": 0}
+    for key, v in calls.items():
+        fn, _, dims = key.partition(" ")
+        if fn != "bconv":
+            continue
+        dims = json.loads(dims)
+        kind = ("moddown" if dims[-3:-1] == [2, k] else
+                "rescale" if dims[-2] == 1 else "other")
+        out[kind] += v
+    return out
 
 
 def phase_parity() -> None:
@@ -407,14 +495,17 @@ def main() -> int:
     phase_parity()
     ntt_src = ("src/repro_torch/csrc/ntt.cu", "src/repro/kernels/ntt/ntt.py:70")
     calls = main_res["calls"]
+    bconv_main = bconv_calls(calls, PAPER_PARAMS.k)
     sources = {
         "ntt": (*ntt_src, sum(v for c, v in calls.items()
                               if c.startswith("ntt_forward "))),
         "ntt_inverse": (*ntt_src, sum(v for c, v in calls.items()
                                       if c.startswith("ntt_inverse "))),
         "bconv": ("src/repro_torch/csrc/bconv.cu",
-                  "src/repro/kernels/bconv/bconv.py:40",
-                  main_res["launches"]["bconv"]),
+                  "src/repro/kernels/bconv/bconv.py:40", bconv_main["moddown"]),
+        "bconv_rescale": ("src/repro_torch/csrc/bconv.cu",
+                          "src/repro/kernels/bconv/bconv.py:40",
+                          bconv_main["rescale"]),
         "fused_ip": ("src/repro_torch/csrc/fused_ip.cu",
                      "src/repro/kernels/fused_ip/fused_ip.py:41",
                      main_res["launches"]["fused_ip"]),

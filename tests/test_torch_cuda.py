@@ -4,7 +4,7 @@ A CUDA kernel has no CPU mode, so these tests skip without a device.
 They import neither JAX nor the JAX package, so they run on a machine
 that has only PyTorch and the CUDA toolkit:
 
-    python -m pytest -q -m cuda tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import numpy as np
 import pytest
@@ -66,6 +66,53 @@ def test_cuda_kernels_equal_plain(cuda, logn):
                          chain + p.p_primes, cuda)
         xd = _res(rng, chain, (2, len(chain), p.N)).to(cuda)
         assert torch.equal(modup(xd, mc), modup_plain(xd, mc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logn", [8, 12, 16])
+def test_cuda_bconv_sweep(cuda, logn):
+    """The BConv kernel equals its plain version word for word across
+    source and destination row counts (groups of 4 source rows cut short,
+    padded row groups), unbatched and in batches of 1 to 3, on random and
+    all-(q-1) residues; every call is one CUDA launch without a cluster."""
+    p = CKKSParams(logN=logn, L=44, alpha=1, k=33)
+    rns = RNSContext(p)
+    rng = np.random.default_rng(logn)
+    native.build_all()
+    for ls in (1, 2, 5, 11, 12, 32):
+        for ld in (1, 3, 34, 35, 36, 45):
+            c = BConvConsts(rns, p.p_primes[:ls], p.q_chain(44)[:ld], cuda)
+            for lead in ((), (1,), (2,), (3,)):
+                rand = _res(rng, c.src, lead + (ls, p.N)).to(cuda)
+                top = (c.src_q[:, None] - 1).expand(rand.shape).contiguous()
+                for x in (rand, top):
+                    native.launch_log("bconv")
+                    got = bconv(x, c)
+                    assert native.launch_log("bconv") == (1, [1])
+                    assert torch.equal(got, bconv_plain(
+                        x, c.qhat_inv, c.src_q, c.qhat_mod, c.dst_q)), \
+                        (ls, ld, lead)
+
+
+@pytest.mark.cuda
+def test_cuda_bconv_refuses(cuda):
+    """More than 32 source rows, a non-contiguous operand or one that is
+    not 16-byte aligned raises before any launch; nothing falls back."""
+    p = CKKSParams(logN=8, L=44, alpha=1, k=33)
+    rns = RNSContext(p)
+    native.build_all()
+    native.launch_log("bconv")
+    c = BConvConsts(rns, p.p_primes, p.q_chain(44)[:3], cuda)
+    with pytest.raises(ValueError, match="at most 32"):
+        bconv(torch.zeros((33, p.N), dtype=torch.int64, device=cuda), c)
+    c = BConvConsts(rns, p.p_primes[:4], p.q_chain(44)[:3], cuda)
+    x = torch.zeros((p.N, 4), dtype=torch.int64, device=cuda).T
+    with pytest.raises(ValueError, match="not contiguous"):
+        bconv(x, c)
+    x = torch.zeros(4 * p.N + 1, dtype=torch.int64, device=cuda)[1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        bconv(x.view(4, p.N), c)
+    assert native.launch_log("bconv") == (0, [])
 
 
 @pytest.mark.cuda

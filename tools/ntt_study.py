@@ -1,7 +1,7 @@
-"""Measure the NTT and ModUp kernels of ``src/repro_torch`` at the paper's
-shapes, beyond what ``chip_smoke.py`` reports.
+"""Measure the NTT, ModUp and BConv kernels of ``src/repro_torch`` at the
+paper's shapes, beyond what ``chip_smoke.py`` reports.
 
-    python3 tools/ntt_study.py [--compare SRC_DIR ...]
+    python3 tools/ntt_study.py [--compare SRC_DIR ... | --bconv]
 
 Needs a CUDA card.  Prints one JSON line per measurement:
 
@@ -12,6 +12,14 @@ Needs a CUDA card.  Prints one JSON line per measurement:
     digit cut to one source row (the reduce's re-reads gone, results not
     checked), and a device copy of the forward's int64 input as a
     yardstick for the memory;
+  * ``bconv`` (alone with ``--bconv``): the BConv kernel at the ModDown
+    shape (2, 12) -> (2, 36) and the rescale shape (1) -> (35),
+    N = 2^16, with every group size G it is built for and 32 or 64
+    lanes a tile, checked against the plain version, with the registers
+    and spills of each G; beside them, a device copy of the output as a
+    yardstick for the memory, and the default geometry built with
+    ``-DHE2_BCONV_NO_LOAD``, ``-DHE2_BCONV_NO_STORE`` or both (results not
+    checked), to see what the loads, the stores and the arithmetic cost;
   * ``phases``: where one forward and one inverse launch spend their
     time, from the device timestamps that ``ntt.cu`` built with
     ``-DHE2_PROBE`` records at the phase boundaries (``PROBE`` in
@@ -19,8 +27,12 @@ Needs a CUDA card.  Prints one JSON line per measurement:
   * ``wrappers`` (with ``--compare``, once for each ``src`` directory
     given, e.g. this tree's and an unpacked older commit's): what the
     engine pays per call, gathers included, for ``poly.ntt`` of
-    (2, 36, 2^16), ``poly.intt`` of (2, 12, 2^16) and the engine's
-    ``_modup`` at level 35 (B = 1), with the kernel launches each makes.
+    (2, 36, 2^16), ``poly.intt`` of (2, 12, 2^16), the engine's
+    ``_modup`` at level 35 (B = 1), ``poly.bconv`` at the ModDown shape
+    (2, 12) -> (2, 36) and the rescale shape (1) -> (35), and the
+    engine's ``_moddown2`` of both accumulators at level 35, with the
+    kernel launches each makes.  Give the trees in turns (``--compare
+    old new new old``) to see the drift between runs.
 
 Times are ``repro_torch.kernels.timing.cuda_ms`` (medians of CUDA-event
 means, host enqueueing hidden), in ms; phase times in microseconds.
@@ -28,7 +40,9 @@ means, host enqueueing hidden), in ms; phase times in microseconds.
 from __future__ import annotations
 
 import ctypes
+import itertools
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -50,10 +64,10 @@ def residues(rng, primes, shape, dev):
 
 
 def wrappers(src: str) -> None:
-    """Per-call device time of the engine's NTT and ModUp entry points of
-    the ``repro_torch`` package under ``src`` (imported in this process
-    only; an older tree may lack ``kernels.timing``, so the timer is this
-    tree's)."""
+    """Per-call device time of the engine's NTT, ModUp, BConv and ModDown
+    entry points of the ``repro_torch`` package under ``src`` (imported in
+    this process only; an older tree may lack ``kernels.timing``, so the
+    timer is this tree's)."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels.timing import cuda_ms
     for name in [m for m in sys.modules if m.startswith("repro_torch")]:
@@ -73,10 +87,17 @@ def wrappers(src: str) -> None:
     x = residues(rng, base, (2, len(base), PP.N), dev)
     xp = residues(rng, PP.p_primes, (2, PP.k, PP.N), dev)
     a = residues(rng, base, (len(base), PP.N), dev)
+    x1 = residues(rng, base[-1:], (1, PP.N), dev)
+    acc = residues(rng, base + PP.p_primes, (2, len(base) + PP.k, PP.N), dev)
     row = {"src": src}
     for name, fn in (("poly.ntt", lambda: tpoly.ntt(x, base, pc)),
                      ("poly.intt", lambda: tpoly.intt(xp, PP.p_primes, pc)),
-                     ("engine._modup", lambda: eng._modup(a, plan))):
+                     ("engine._modup", lambda: eng._modup(a, plan)),
+                     ("poly.bconv moddown",
+                      lambda: tpoly.bconv(xp, PP.p_primes, base, pc)),
+                     ("poly.bconv rescale",
+                      lambda: tpoly.bconv(x1, base[-1:], base[:-1], pc)),
+                     ("engine._moddown2", lambda: eng._moddown2(acc, plan))):
         fn()
         torch.cuda.synchronize()
         before = dict(tnative.LAUNCHES)
@@ -85,6 +106,77 @@ def wrappers(src: str) -> None:
                                    tnative.LAUNCHES.items() if v > before[k]}
         row[f"{name} ms"] = cuda_ms(fn)
     emit({"wrappers": row})
+
+
+def ptxas_bconv(text: str) -> dict:
+    """{G: [registers, spill store bytes]} from ``ptxas -v`` of bconv.cu."""
+    out = {}
+    for part in text.split("Compiling entry function")[1:]:
+        g = re.search(r"bconv_kernelILi(\d+)E", part)
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores", part)
+        if g and regs and spill:
+            out[int(g.group(1))] = [int(regs.group(1)), int(spill.group(1))]
+    return out
+
+
+def bconv_study(P, pc, rng, xp) -> None:
+    """The ``bconv`` lines: every group size the kernel is built for and
+    32 or 64 lanes a tile, at the ModDown shape (``xp``, the P limbs of
+    both accumulators) and the rescale shape, each checked against the
+    plain version; with the registers and spills of each group size."""
+    from repro_torch.kernels import native
+    from repro_torch.kernels.bconv.ops import (
+        GROUP_ROWS, BConvConsts, bconv_plain, geometry,
+    )
+    from repro_torch.kernels.timing import cuda_ms
+
+    _, report = native.compile_libs(["bconv"])
+    if "bconv" in report:
+        emit({"bconv_g_regs_spills": ptxas_bconv(report["bconv"]["ptxas"])})
+    lib_bc = native.lib("bconv")
+    dev, N = xp.device, P.N
+    base, kp = P.q_chain(P.L), P.p_primes
+    x1 = residues(rng, base[-1:], (1, N), dev)
+    for name, src, dst, xx in (("moddown", kp, base, xp),
+                               ("rescale", base[-1:], base[:-1], x1)):
+        c = BConvConsts(pc.rns, src, dst, dev)
+        want = bconv_plain(xx, c.qhat_inv, c.src_q, c.qhat_mod, c.dst_q)
+        yy = torch.empty_like(want)
+        batch = xx.numel() // (c.ls * N)
+        row = {"bconv": name, "shape": list(xx.shape[:-1]) + [c.ld],
+               "default": geometry(batch, c.ls, c.ld, P.logN)._asdict()}
+        for g, lanes in itertools.product(GROUP_ROWS, (32, 64)):
+            geo = geometry(batch, c.ls, c.ld, P.logN, g, lanes)
+            fn = (lambda geo=geo: native.invoke(
+                lib_bc, "bconv", xx.data_ptr(), yy.data_ptr(),
+                c.qhat_inv_m.data_ptr(), c.src_q32.data_ptr(),
+                c.src_qn32.data_ptr(), c.cm.data_ptr(),
+                c.dst_q32.data_ptr(), c.dst_qn32.data_ptr(), batch, c.ls,
+                c.ld, P.logN, c.g_acc, geo.g, geo.lanes, geo.threads,
+                geo.tiles, geo.groups))
+            yy.zero_()
+            fn()
+            torch.cuda.synchronize()
+            if not torch.equal(yy, want):
+                raise AssertionError(f"bconv {name} {geo}")
+            row[f"g{g}_l{lanes}_ms"] = cuda_ms(fn, reps=20)
+        row["copy_output_ms"] = cuda_ms(lambda: yy.copy_(want), reps=20)
+        # the default geometry built without its loads, its stores or both
+        geo = geometry(batch, c.ls, c.ld, P.logN)
+        for probe in (("HE2_BCONV_NO_LOAD",), ("HE2_BCONV_NO_STORE",),
+                      ("HE2_BCONV_NO_LOAD", "HE2_BCONV_NO_STORE")):
+            paths, _ = native.compile_libs(["bconv"], defines=probe)
+            lib = ctypes.CDLL(str(paths["bconv"]))
+            row["+".join(p[10:].lower() for p in probe) + "_ms"] = cuda_ms(
+                lambda: native.invoke(
+                    lib, "bconv", xx.data_ptr(), yy.data_ptr(),
+                    c.qhat_inv_m.data_ptr(), c.src_q32.data_ptr(),
+                    c.src_qn32.data_ptr(), c.cm.data_ptr(),
+                    c.dst_q32.data_ptr(), c.dst_qn32.data_ptr(), batch,
+                    c.ls, c.ld, P.logN, c.g_acc, geo.g, geo.lanes,
+                    geo.threads, geo.tiles, geo.groups), reps=20)
+        emit(row)
 
 
 def main() -> int:
@@ -121,6 +213,9 @@ def main() -> int:
     base = P.q_chain(P.L)
     ext = base + P.p_primes
     kp = P.p_primes
+    if args[:1] == ["--bconv"]:
+        bconv_study(P, pc, rng, residues(rng, kp, (2, P.k, N), dev))
+        return 0
 
     def ntt(library, fn, x, y, primes, logc):
         d = "i" if fn == "ntt_inverse" else "f"
@@ -174,6 +269,8 @@ def main() -> int:
         row["modup_one_source_row_ms"] = cuda_ms(mu(one_row), reps=20)
         row["copy_fwd_input_ms"] = cuda_ms(lambda: y.copy_(x), reps=20)
         emit({"sizes": row})
+
+    bconv_study(P, pc, rng, xp)
 
     # ----------------------------------------------------------- phases
     paths, _ = native.compile_libs(["ntt"], defines=("HE2_PROBE",))
