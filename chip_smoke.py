@@ -31,7 +31,22 @@ exits non-zero):
              RESCALES rescale-shaped calls, and each library's CUDA
              launches must be what its wrapper calls make: one a call,
              two for ModUp;
-  4. parity  the same program at N = 2^16 on a short chain (L=7,
+  4. runtime the compiled runtime at PAPER_PARAMS: x -> BSGS matvec
+             (8 diagonals, 4 baby steps) -> rescale -> Chebyshev of
+             degree 7, traced once and compiled with fusion off and on;
+             ``ProgramExecutor.run`` of both, ``run_batched`` (B=2) of
+             the fused one.  The unfused output must equal the eager
+             replay of the same code bit for bit (level and scale too),
+             every run's ``reconcile()`` must have ``counts_match``, the
+             fused run must do fewer ModUps than the eager one, the
+             batch's slots must equal the single runs, each batched
+             rescale must be one BConv launch, and every kernel must be
+             launched in every run.  Then the fused program at logN=16,
+             L=7 on the card and on the CPU, identical residues.  Prints
+             seconds per run and per step (the port's ``obs`` spans),
+             launches and calls per run, ModUp/ModDown counts and the
+             device's busy share;
+  5. parity  the main path's program at N = 2^16 on a short chain (L=7,
              alpha=3, k=3) on the card and on the CPU, identical residues
              after every op.
 
@@ -84,6 +99,13 @@ MODDOWNS = 5
 RESCALES = 4
 # CUDA launches per wrapper call, by library
 CUDA_PER_CALL = {"ntt": 1, "bconv": 1, "fused_ip": 1, "modup": 2}
+# The runtime phase's program: a BSGS matvec over RT_DIAGS diagonals
+# with RT_BS baby steps, then a Chebyshev polynomial of RT_DEGREE
+RT_DIAGS = 8
+RT_BS = 4
+RT_DEGREE = 7
+# the short chain at full ring width of the parity checks
+SHORT_KW = dict(logN=16, L=7, alpha=3, k=3)
 
 
 def emit(obj) -> None:
@@ -281,7 +303,7 @@ def phase_kernels(P, native) -> dict:
     return out
 
 
-# ------------------------------------------------------------- phases 3, 4
+# ------------------------------------------------------------- phases 3, 5
 STEPS = [1, 2, 3, 4]
 
 
@@ -467,12 +489,247 @@ def bconv_calls(calls: dict, k: int) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 4
+def runtime_data(P, seed: int) -> dict:
+    """Diagonals (each slot of the product stays in [-1, 1]), the
+    Chebyshev coefficients of tanh, and two input slot vectors."""
+    from repro_torch.core.polyeval import chebyshev_coeffs
+
+    rng = np.random.default_rng(seed)
+    nh = P.num_slots
+    return {"diags": {d: rng.uniform(-1, 1, nh) / RT_DIAGS
+                      for d in range(RT_DIAGS)},
+            "coeffs": chebyshev_coeffs(np.tanh, RT_DEGREE),
+            "xs": [rng.uniform(-1, 1, nh) for _ in range(2)]}
+
+
+def runtime_program(cx, h, data):
+    """BSGS matvec (with its rescale) then the Chebyshev polynomial: the
+    same code runs eagerly on a ``CKKSContext`` and traced on a
+    ``TraceContext``."""
+    from repro_torch.core import linear, polyeval
+
+    y = linear.matvec_bsgs(cx, h, data["diags"], bs=RT_BS)
+    return polyeval.eval_chebyshev(cx, y, data["coeffs"])
+
+
+def runtime_expected(data, x):
+    y = sum(v * np.roll(x, -d) for d, v in data["diags"].items())
+    return np.polynomial.chebyshev.chebval(y, data["coeffs"])
+
+
+def compile_runtime(P, data, fusion: bool):
+    from repro_torch.runtime import TraceContext, compile_program
+
+    tc = TraceContext(P)
+    h = tc.input("x", level=P.L, scale=P.scale)
+    tc.output(runtime_program(tc, h, data), "y")
+    return compile_program(tc, fusion=fusion)
+
+
+def same_ct(a, b) -> bool:
+    return (a.level == b.level and a.scale == b.scale
+            and torch.equal(a.c0.cpu(), b.c0.cpu())
+            and torch.equal(a.c1.cpu(), b.c1.cpu()))
+
+
+def counted_run(native, fn) -> tuple:
+    """``fn()`` with the launch counts set to 0 just before it and read
+    just after: (result, wall seconds, launches, CUDA launches, calls)."""
+    native.reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(native.LAUNCHES)
+    cuda_launches = {k: native.launch_log(k)[0] for k in launches}
+    calls = {f"{f} {list(shape)}": v
+             for (f, shape), v in sorted(native.CALLS.items())}
+    idle = [k for k, v in launches.items() if v == 0]
+    if idle:
+        raise AssertionError(f"kernels not launched on the runtime path: "
+                             f"{idle}")
+    for k, n in cuda_launches.items():
+        if n != CUDA_PER_CALL[k] * launches[k]:
+            raise AssertionError(f"runtime {k}: {n} CUDA launches for "
+                                 f"{launches[k]} wrapper calls")
+    return out, wall, launches, cuda_launches, calls
+
+
+def step_seconds(ex, comp, inputs) -> dict:
+    """One run with the port's tracer on: seconds per ``exec.step.*``
+    span (each ends with a device synchronize), by step label."""
+    from repro_torch import obs
+
+    was = obs.TRACER.enabled
+    obs.TRACER.reset()
+    obs.enable()
+    try:
+        ex.run(comp, inputs)
+    finally:
+        spans = obs.TRACER.spans("exec.step.*")
+        obs.TRACER.reset()
+        obs.TRACER.enabled = was
+    out = {}
+    for s in spans:
+        label = s.name[len("exec.step."):]
+        n, total, top = out.get(label, (0, 0.0, 0.0))
+        dt = (s.end_ns - s.start_ns) / 1e9
+        out[label] = (n + 1, total + dt, max(top, dt))
+    return {k: {"steps": n, "s": total, "max_s": top}
+            for k, (n, total, top) in sorted(out.items())}
+
+
+def phase_runtime(P, native) -> dict:
+    """The compiled runtime at PAPER_PARAMS (see the module docstring)."""
+    from repro_torch.core.ckks import CKKSContext
+    from repro_torch.core.params import CKKSParams
+    from repro_torch.dfg.graph import OpKind
+    from repro_torch.runtime import ProgramExecutor
+    from repro_torch.runtime.lower import EagerStep
+
+    t_phase = time.perf_counter()
+    data = runtime_data(P, SEED + 4)
+    t0 = time.perf_counter()
+    comps = {f: compile_runtime(P, data, f) for f in (False, True)}
+    compile_s = time.perf_counter() - t0
+    ctx = CKKSContext(P, seed=SEED + 4, device="cuda")
+    cts = [ctx.encrypt(x) for x in data["xs"]]
+    ex = ProgramExecutor(ctx)
+    runs = {}
+    results = {}
+    for name, comp, fn in (
+            ("unfused", comps[False],
+             lambda: ex.run(comps[False], {"x": cts[0]}, with_report=True)),
+            ("fused", comps[True],
+             lambda: ex.run(comps[True], {"x": cts[0]}, with_report=True)),
+            ("fused_batched", comps[True],
+             lambda: ex.run_batched(comps[True], {"x": cts},
+                                    with_report=True))):
+        res, wall, launches, cuda_launches, calls = counted_run(native, fn)
+        rec = res.report.reconcile()
+        if not rec["counts_match"]:
+            raise AssertionError(f"runtime {name}: counts do not reconcile "
+                                 f"{rec}")
+        results[name] = res
+        runs[name] = {"s": wall, "modup": res.report.executed.modup,
+                      "moddown": res.report.executed.moddown,
+                      "steps": len(comp.steps), "summary": comp.summary(),
+                      "reconcile": rec, "launches": launches,
+                      "cuda_launches": cuda_launches, "calls": calls}
+
+    # the eager replay of the same code: the unfused run's bitstream
+    before = ctx.counters.snapshot()
+    t0 = time.perf_counter()
+    eager = runtime_program(ctx, cts[0], data)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    eager_ops = ctx.counters.delta(before)
+    if not same_ct(results["unfused"]["y"], eager):
+        raise AssertionError("runtime: the fusion=False output differs "
+                             "from the eager replay")
+    if not runs["fused"]["modup"] < eager_ops.modup:
+        raise AssertionError(f"runtime: fused run did {runs['fused']['modup']}"
+                             f" ModUps, the eager one {eager_ops.modup}")
+    for b, ct in enumerate(results["fused_batched"]["y"]):
+        want = (results["fused"]["y"] if b == 0 else
+                ex.run(comps[True], {"x": cts[b]})["y"])
+        if not same_ct(ct, want):
+            raise AssertionError(f"runtime: batch slot {b} differs from "
+                                 f"its single run")
+    # each batched rescale is one poly.rescale over both components of
+    # both ciphertexts: one rescale-shaped BConv launch
+    n_rescale = sum(1 for s in comps[True].steps if isinstance(s, EagerStep)
+                    and comps[True].dfg.nodes[s.nid].op == OpKind.RESCALE)
+    rescale_calls = {c: v for c, v in runs["fused_batched"]["calls"].items()
+                     if c.startswith("bconv ")
+                     and json.loads(c.partition(" ")[2])[-2] == 1}
+    if sum(rescale_calls.values()) != n_rescale or any(
+            json.loads(c.partition(" ")[2])[:3] != [2, 2, 1]
+            for c in rescale_calls):
+        raise AssertionError(f"runtime: batched rescales {rescale_calls}, "
+                             f"expected {n_rescale} of shape [2, 2, 1, ld]")
+
+    errs = {}
+    for name in ("unfused", "fused"):
+        got = ctx.decrypt(results[name]["y"])
+        want = runtime_expected(data, data["xs"][0])
+        if got.shape != want.shape or not np.all(np.isfinite(got)):
+            raise AssertionError(f"runtime {name}: bad decryption")
+        errs[name] = float(np.abs(got - want).max())
+    bad = {k: v for k, v in errs.items() if v > MAX_ERR}
+    if bad:
+        raise AssertionError(f"runtime: decryption error above {MAX_ERR}: "
+                             f"{bad}")
+
+    # warm: the plaintexts are encoded and lifted now
+    t0 = time.perf_counter()
+    ex.run(comps[False], {"x": cts[0]})
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    per_step = step_seconds(ex, comps[False], {"x": cts[0]})
+    prof = device_profile(lambda: ex.run(comps[False], {"x": cts[0]}))
+    if prof["device_ms"] is not None:
+        prof["device_busy_share"] = (prof["device_ms"] / 1e3
+                                     / prof["profiled_wall_s"])
+
+    # the fused program on the short chain, card against CPU
+    P7 = CKKSParams(**SHORT_KW)
+    t0 = time.perf_counter()
+    data7 = runtime_data(P7, SEED + 6)
+    comp7 = compile_runtime(P7, data7, True)
+    outs7 = []
+    for dev in ("cuda", "cpu"):
+        c7 = CKKSContext(P7, seed=SEED + 6, device=dev)
+        outs7.append(ProgramExecutor(c7).run(
+            comp7, {"x": c7.encrypt(data7["xs"][0])})["y"])
+    if not same_ct(*outs7):
+        raise AssertionError("runtime: logN=16 L=7 card and CPU residues "
+                             "differ")
+    short_s = time.perf_counter() - t0
+
+    res = {"phase": "runtime", "params": "PAPER_PARAMS",
+           "program": f"matvec_bsgs({RT_DIAGS} diagonals, bs={RT_BS}) -> "
+                      f"rescale -> chebyshev(degree {RT_DEGREE})",
+           "compile_s": compile_s, "runs": runs,
+           "eager": {"s": eager_s, "modup": eager_ops.modup,
+                     "moddown": eager_ops.moddown},
+           "unfused_equals_eager": True, "max_err": errs,
+           "bound": MAX_ERR, "warm_unfused_s": warm_s,
+           "step_s": per_step, "profile": prof,
+           "batched_rescales": rescale_calls,
+           "short_chain": {"params": "logN=16 L=7 alpha=3 k=3",
+                           "fused_identical_cpu": True, "s": short_s},
+           "level_out": results["unfused"]["y"].level,
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    return res
+
+
+def runtime_launches(rt: dict, name: str, k: int) -> int:
+    """Wrapper calls of kernel row ``name`` in the runtime phase's three
+    counted runs."""
+    total = 0
+    for run in rt["runs"].values():
+        calls = run["calls"]
+        if name in ("ntt", "ntt_inverse"):
+            prefix = "ntt_forward " if name == "ntt" else "ntt_inverse "
+            total += sum(v for c, v in calls.items() if c.startswith(prefix))
+        elif name in ("bconv", "bconv_rescale"):
+            kinds = bconv_calls(calls, k)
+            total += kinds["moddown" if name == "bconv" else "rescale"]
+        else:
+            total += run["launches"]["fused_ip" if name == "fused_ip"
+                                     else "modup"]
+    return total
+
+
 def phase_parity() -> None:
     """The program at N = 2^16 on a short chain, card against CPU."""
     from repro_torch.core.ckks import CKKSContext
     from repro_torch.core.params import CKKSParams
 
-    P = CKKSParams(logN=16, L=7, alpha=3, k=3)
+    P = CKKSParams(**SHORT_KW)
     t0 = time.perf_counter()
     ctx = CKKSContext(P, seed=SEED + 2, device="cuda")
     outs = program(ctx, prepare(ctx, P, SEED + 2))
@@ -492,6 +749,7 @@ def main() -> int:
     smi = phase_build(native)
     kern = phase_kernels(PAPER_PARAMS, native)
     main_res = phase_main(PAPER_PARAMS, native)
+    rt = phase_runtime(PAPER_PARAMS, native)
     phase_parity()
     ntt_src = ("src/repro_torch/csrc/ntt.cu", "src/repro/kernels/ntt/ntt.py:70")
     calls = main_res["calls"]
@@ -518,6 +776,8 @@ def main() -> int:
         r = kern[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": launches,
+                     "runtime_launches": runtime_launches(rt, name,
+                                                          PAPER_PARAMS.k),
                      **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
                                           "library_ms", "cuda_launches",

@@ -79,3 +79,12 @@ def plaintext_from_numpy(pc: PolyContext, m, level: int,
 
 def plaintext_to_numpy(pt: Plaintext) -> dict:
     return {"m": _numpy(pt.m), "level": pt.level, "scale": pt.scale}
+
+
+def exec_result_to_numpy(result) -> dict:
+    """A ``ProgramExecutor`` result's outputs as numpy: each tag maps to
+    ``ciphertext_to_numpy`` of its ciphertext, or to a list of them, one
+    per batch slot, for ``run_batched``."""
+    return {tag: ([ciphertext_to_numpy(c) for c in ct]
+                  if isinstance(ct, list) else ciphertext_to_numpy(ct))
+            for tag, ct in result.outputs.items()}

@@ -22,6 +22,14 @@ plan key (the op signature, plus the batch width for ``*_batched``
 calls), the counterpart of the reference's jit traces.  A repeat dispatch
 never raises it.  evk and plaintext tensors are per-``id(evk)`` device
 caches resolved at dispatch time.
+
+With ``repro_torch.obs`` tracing on, the engine emits the reference's
+events under the same names and attribute keys: ``engine.kernel_dispatch``
+at every public entry point, ``engine.jit_trace`` where a new dispatch
+shape is counted in ``trace_counts``, and ``engine.evk_admit`` where a
+key enters the cache.  ``backend`` is the device type (``"cuda"`` or
+``"cpu"``); ModUp is always the one-call kernel (``modup="fused"``), and
+nothing is interpreted.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import poly
 from repro_torch.core.counters import OpCounters
 from repro_torch.errors import ModulusChainMismatchError
@@ -99,6 +108,11 @@ class KeyswitchEngine:
         self._perm_cache: dict[tuple, torch.Tensor] = {}
         self.trace_counts: dict[tuple, int] = {}
 
+    @property
+    def backend(self) -> str:
+        """The device type the engine runs on: ``"cuda"`` or ``"cpu"``."""
+        return self.pc.device.type
+
     # ------------------------- op counting -----------------------------
     def _note_keyswitch(self, plan: KeyswitchPlan, m: int = 1) -> None:
         c = self.counters
@@ -150,7 +164,16 @@ class KeyswitchEngine:
         """Count the first dispatch of each (plan key, batch width)."""
         if (key, width) not in self._seen:
             self._seen.add((key, width))
-            self.trace_counts[key] = self.trace_counts.get(key, 0) + 1
+            n = self.trace_counts.get(key, 0) + 1
+            self.trace_counts[key] = n
+            # a plan key seen again at a new width is a retrace
+            obs.event("engine.jit_trace", key=str(key), count=n,
+                      retrace=n > 1)
+
+    def _note_dispatch(self, op: str) -> None:
+        """Kernel-dispatch event, one per public entry point call."""
+        obs.event("engine.kernel_dispatch", op=op, backend=self.backend,
+                  modup="fused", interpret=False)
 
     # ------------------------- evk stacking ----------------------------
     def _admit_evk(self, evk: EvalKey) -> None:
@@ -180,6 +203,7 @@ class KeyswitchEngine:
         if key not in self._evk_full:
             self._admit_evk(evk)
             self._evk_full[key] = (evk, torch.stack(evk.digits))
+            obs.event("engine.evk_admit", cached=len(self._evk_full))
         return self._evk_full[key][1]
 
     def evk_tensor(self, evk: EvalKey, level: int) -> torch.Tensor:
@@ -287,26 +311,33 @@ class KeyswitchEngine:
         return (base0 + d[..., 0, :, :]) % bm, (base1 + d[..., 1, :, :]) % bm
 
     # ------------------------- public API ------------------------------
+    # Each entry point emits its dispatch event, counts its ops, resolves
+    # its key tensors (an admission emits its event) and only then counts
+    # the dispatch shape, in the reference's order of events.
     def keyswitch(self, a, evk: EvalKey, level: int):
         """ModUp -> IP -> ModDown of poly ``a``: (d0, d1) under Q_level."""
+        self._note_dispatch("keyswitch")
         plan = self._plan(level)
         self._note_keyswitch(plan)
+        ek = self.evk_tensor(evk, level)
         self._dispatch(("keyswitch", level))
-        return self._ks_body(a, self.evk_tensor(evk, level), plan)
+        return self._ks_body(a, ek, plan)
 
     def apply_galois(self, c0, c1, galois: int, evk: EvalKey, level: int):
         """Fused rotate: eval-domain automorphism + keyswitch of c1."""
+        self._note_dispatch("rotate")
         plan = self._plan(level)
         self._note_keyswitch(plan)
         self.counters.rotation += 1
-        self._dispatch(("galois", level))
         perm = self.perm_tensor([galois])[0]
-        return self._galois_body(c0, c1, perm, self.evk_tensor(evk, level),
-                                 plan)
+        ek = self.evk_tensor(evk, level)
+        self._dispatch(("galois", level))
+        return self._galois_body(c0, c1, perm, ek, plan)
 
     def modup(self, a, level: int):
         """Standalone ModUp of poly ``a`` -> (dnum, l_ext, N) digits,
         shareable across hoisted blocks anchored on the same ciphertext."""
+        self._note_dispatch("modup")
         plan = self._plan(level)
         self.counters.note_modup(plan.l, plan.l_ext, plan.group_sizes,
                                  plan.N)
@@ -322,75 +353,86 @@ class KeyswitchEngine:
         ``digits``: pre-computed ModUp digits from :meth:`modup` — the
         internal ModUp is skipped (bit-exact with the monolithic path).
         """
+        self._note_dispatch("hoisted_rotation_sum")
         plan = self._plan(level)
         n_rot = len(galois_list)
         self._note_hoisted(plan, n_rot, digits is None)
+        perms = self.perm_tensor(galois_list)
+        evk_all = self.evk_group_tensor(evks, level)
         with_pt = pm_base is not None
         name = "hoisted" if digits is None else "hoisted_digits"
         self._dispatch((name, level, n_rot, with_pt))
         if digits is None:
             digits = self._modup(c1, plan)
-        return self._hoist_core(
-            plan, c0, digits, self.perm_tensor(galois_list),
-            self.evk_group_tensor(evks, level), pm_ext, pm_base)
+        return self._hoist_core(plan, c0, digits, perms, evk_all, pm_ext,
+                                pm_base)
 
     def multi_hoisted_rotation_sum(self, c0s, digits_list, galois_list,
                                    evks, level: int):
         """sum_i Rot_{g_i}(ct_i) over DIFFERENT anchor ciphertexts with
         ONE ModDown: per-term IPs accumulate in the extended basis; a
         single batched ModDown closes the sum."""
+        self._note_dispatch("multi_hoisted_rotation_sum")
         plan = self._plan(level)
         n = len(galois_list)
         self._note_multi(plan, n)
+        perms = self.perm_tensor(galois_list)
+        evk_all = self.evk_group_tensor(evks, level)
         self._dispatch(("multi_hoisted", level, n))
-        return self._multi_core(
-            plan, torch.stack(c0s), torch.stack(digits_list),
-            self.perm_tensor(galois_list), self.evk_group_tensor(evks, level))
+        return self._multi_core(plan, torch.stack(c0s),
+                                torch.stack(digits_list), perms, evk_all)
 
     def relin(self, d0, d1, d2, evk: EvalKey, level: int, digits=None):
         """Relinearize a degree-2 ciphertext: (d0, d1) + KS(d2); the ModUp
         is skipped when pre-computed ``digits`` are passed."""
+        self._note_dispatch("relin")
         plan = self._plan(level)
         self._note_relin(plan, digits is None)
+        ek = self.evk_tensor(evk, level)
         self._dispatch(("relin", level, digits is not None))
         if digits is None:
             digits = self._modup(d2, plan)
-        return self._relin_core(plan, d0, d1, digits,
-                                self.evk_tensor(evk, level))
+        return self._relin_core(plan, d0, d1, digits, ek)
 
     def multi_relin_sum(self, d0s, d1s, digits_list, evk: EvalKey,
                         level: int):
         """sum_i [(d0_i, d1_i) + KS(d2_i)] with ONE ModDown; digits are
         per-term pre-computed ModUps of the d2 components."""
+        self._note_dispatch("multi_relin_sum")
         plan = self._plan(level)
         n = len(digits_list)
         self._note_relin(plan, with_modup=False, n=n)
+        ek = self.evk_tensor(evk, level)
         self._dispatch(("multi_relin", level, n))
         return self._multi_relin_core(
             plan, torch.stack(d0s), torch.stack(d1s),
-            torch.stack(digits_list), self.evk_tensor(evk, level))
+            torch.stack(digits_list), ek)
 
     # -------- batched public API (leading ct axis) ----------------------
     def keyswitch_batched(self, ab, evk: EvalKey, level: int):
         """Batched keyswitch of (B, l, N) polys."""
+        self._note_dispatch("keyswitch_batched")
         plan = self._plan(level)
         m = int(ab.shape[0])
         self._note_keyswitch(plan, m=m)
+        ek = self.evk_tensor(evk, level)
         self._dispatch(("keyswitch_b", level), m)
-        return self._ks_body(ab, self.evk_tensor(evk, level), plan)
+        return self._ks_body(ab, ek, plan)
 
     def apply_galois_batched(self, c0b, c1b, galois: int, evk: EvalKey,
                              level: int):
+        self._note_dispatch("rotate_batched")
         plan = self._plan(level)
         m = int(c0b.shape[0])
         self._note_keyswitch(plan, m=m)
         self.counters.rotation += m
-        self._dispatch(("galois_b", level), m)
         perm = self.perm_tensor([galois])[0]
-        return self._galois_body(c0b, c1b, perm,
-                                 self.evk_tensor(evk, level), plan)
+        ek = self.evk_tensor(evk, level)
+        self._dispatch(("galois_b", level), m)
+        return self._galois_body(c0b, c1b, perm, ek, plan)
 
     def modup_batched(self, ab, level: int):
+        self._note_dispatch("modup_batched")
         plan = self._plan(level)
         m = int(ab.shape[0])
         self.counters.note_modup(plan.l, plan.l_ext, plan.group_sizes,
@@ -402,55 +444,63 @@ class KeyswitchEngine:
                                            galois_list, evks, level: int):
         """Batched multi-anchor accumulation: per-term (B, l, N) c0s and
         (B, dnum, l_ext, N) digits."""
+        self._note_dispatch("multi_hoisted_rotation_sum_batched")
         plan = self._plan(level)
         n = len(galois_list)
         m = int(c0s[0].shape[0])
         self._note_multi(plan, n, m)
+        perms = self.perm_tensor(galois_list)
+        evk_all = self.evk_group_tensor(evks, level)
         self._dispatch(("multi_hoisted_b", level, n), m)
         return self._multi_core(
             plan, torch.stack(c0s, dim=1), torch.stack(digits_list, dim=1),
-            self.perm_tensor(galois_list), self.evk_group_tensor(evks, level))
+            perms, evk_all)
 
     def relin_batched(self, d0b, d1b, d2b, evk: EvalKey, level: int,
                       digits=None):
         """Batched relinearization of (B, l, N) degree-2 components
         (``digits``: (B, dnum, l_ext, N))."""
+        self._note_dispatch("relin_batched")
         plan = self._plan(level)
         m = int(d0b.shape[0])
         self._note_relin(plan, digits is None, m=m)
+        ek = self.evk_tensor(evk, level)
         self._dispatch(("relin_b", level, digits is not None), m)
         if digits is None:
             digits = self._modup(d2b, plan)
-        return self._relin_core(plan, d0b, d1b, digits,
-                                self.evk_tensor(evk, level))
+        return self._relin_core(plan, d0b, d1b, digits, ek)
 
     def multi_relin_sum_batched(self, d0s, d1s, digits_list,
                                 evk: EvalKey, level: int):
         """Batched multi-relin accumulation: per-term (B, l, N) d0/d1 and
         (B, dnum, l_ext, N) digits."""
+        self._note_dispatch("multi_relin_sum_batched")
         plan = self._plan(level)
         n = len(digits_list)
         m = int(d0s[0].shape[0])
         self._note_relin(plan, with_modup=False, n=n, m=m)
+        ek = self.evk_tensor(evk, level)
         self._dispatch(("multi_relin_b", level, n), m)
         return self._multi_relin_core(
             plan, torch.stack(d0s, dim=1), torch.stack(d1s, dim=1),
-            torch.stack(digits_list, dim=1), self.evk_tensor(evk, level))
+            torch.stack(digits_list, dim=1), ek)
 
     def hoisted_rotation_sum_batched(self, c0b, c1b, galois_list,
                                      evks, level: int, pm_ext=None,
                                      pm_base=None, digits=None):
         """(B, l, N) c0/c1 (or (B, dnum, l_ext, N) pre-computed
         ``digits``), shared perm/evk/plaintext tensors."""
+        self._note_dispatch("hoisted_rotation_sum_batched")
         plan = self._plan(level)
         n_rot = len(galois_list)
         m = int(c0b.shape[0])
         self._note_hoisted(plan, n_rot, digits is None, m=m)
+        perms = self.perm_tensor(galois_list)
+        evk_all = self.evk_group_tensor(evks, level)
         with_pt = pm_base is not None
         self._dispatch(("hoisted_b", level, n_rot, with_pt,
                         digits is not None), m)
         if digits is None:
             digits = self._modup(c1b, plan)
-        return self._hoist_core(
-            plan, c0b, digits, self.perm_tensor(galois_list),
-            self.evk_group_tensor(evks, level), pm_ext, pm_base)
+        return self._hoist_core(plan, c0b, digits, perms, evk_all, pm_ext,
+                                pm_base)

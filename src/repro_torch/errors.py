@@ -1,7 +1,9 @@
 """Typed errors the port raises, mirroring the JAX package's taxonomy.
 
-Only the ciphertext-data branch is needed by the CKKS scheme and the
-keyswitch engine; every error carries a keyword ``context`` dict and an
+The ciphertext-data branch serves the CKKS scheme, the keyswitch engine
+and the compiled runtime's ``validate=`` checks; of the serving branch
+only ``InvalidRequestError`` is needed yet (the executor's request
+checks).  Every error carries a keyword ``context`` dict and an
 optional ``hint``, both rendered into ``str(err)``.
 """
 from __future__ import annotations
@@ -46,3 +48,11 @@ class ModulusChainMismatchError(CiphertextError):
 
 class CorruptCiphertextError(CiphertextError):
     """Limb residues out of [0, q) (or NaN) — data corruption."""
+
+
+class ServingError(ReproError):
+    """The serving environment failed; the request data may be fine."""
+
+
+class InvalidRequestError(ServingError):
+    """Malformed request: unknown program id, missing input tags, ..."""

@@ -217,3 +217,68 @@ def test_cuda_context_equals_cpu_context(cuda):
     for a, b in zip(*outs):
         assert a.level == b.level
         assert torch.equal(a.c0.cpu(), b.c0) and torch.equal(a.c1.cpu(), b.c1)
+
+
+@pytest.mark.cuda
+def test_cuda_batched_rescale_one_launch(cuda):
+    """``run_batched``'s rescale is one ``poly.rescale`` over both
+    components of every ciphertext: one BConv launch with 2 x B source
+    rows, equal to each ciphertext's own rescale."""
+    from repro_torch.core.ckks import CKKSContext
+    from repro_torch.runtime import (
+        ProgramExecutor, TraceContext, compile_program,
+    )
+
+    p = CKKSParams(logN=12, L=4, alpha=2, k=3, q_bits=29)
+    ctx = CKKSContext(p, seed=5, device=cuda)
+    rng = np.random.default_rng(5)
+    cts = [ctx.encrypt(rng.uniform(-1, 1, p.num_slots)) for _ in range(3)]
+    tc = TraceContext(p)
+    tc.output(tc.rescale(tc.input("x")), "y")
+    comp = compile_program(tc)
+    ex = ProgramExecutor(ctx)
+    native.reset_counts()
+    outs = ex.run_batched(comp, {"x": cts})["y"]
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["bconv"] == 1
+    assert native.launch_log("bconv")[0] == 1
+    assert {k: v for k, v in native.CALLS.items() if k[0] == "bconv"} \
+        == {("bconv", (2, 3, 1, p.L)): 1}
+    for got, ct in zip(outs, cts):
+        want = ctx.rescale(ct)
+        assert (got.level, got.scale) == (want.level, want.scale)
+        assert torch.equal(got.c0, want.c0) and torch.equal(got.c1, want.c1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fusion", [False, True])
+def test_cuda_runtime_equals_cpu(cuda, fusion):
+    """A compiled BSGS matvec -> Chebyshev program at logN=12 gives the
+    CPU's residues on the card, with ``run`` and ``run_batched``."""
+    from repro_torch.core import linear, polyeval
+    from repro_torch.core.ckks import CKKSContext
+    from repro_torch.runtime import (
+        ProgramExecutor, TraceContext, compile_program,
+    )
+
+    p = CKKSParams(logN=12, L=8, alpha=2, k=3, q_bits=29)
+    rng = np.random.default_rng(12)
+    nh = p.num_slots
+    diags = {d: rng.uniform(-1, 1, nh) / 8 for d in range(8)}
+    coeffs = polyeval.chebyshev_coeffs(np.tanh, 7)
+    xs = [rng.uniform(-1, 1, nh) for _ in range(2)]
+    tc = TraceContext(p)
+    h = linear.matvec_bsgs(tc, tc.input("x"), diags, bs=4)
+    tc.output(polyeval.eval_chebyshev(tc, h, coeffs), "y")
+    comp = compile_program(tc, fusion=fusion)
+    outs = []
+    for dev in (cuda, "cpu"):
+        ctx = CKKSContext(p, seed=6, device=dev)
+        cts = [ctx.encrypt(x) for x in xs]
+        ex = ProgramExecutor(ctx)
+        outs.append([ex.run(comp, {"x": cts[0]})["y"]]
+                    + ex.run_batched(comp, {"x": cts})["y"])
+    for a, b in zip(*outs):
+        assert (a.level, a.scale) == (b.level, b.scale)
+        assert torch.equal(a.c0.cpu(), b.c0) and torch.equal(a.c1.cpu(), b.c1)
+    assert torch.equal(outs[1][0].c0, outs[1][1].c0)
