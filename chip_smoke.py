@@ -11,10 +11,12 @@ exits non-zero):
   2. kernels each kernel at the paper shapes (logN=16, level 35: l=36,
              k=12, l_ext=48, dnum=3, alpha=12) against its plain PyTorch
              version on the same inputs, exact integer equality; median
-             kernel and plain times from CUDA events; the CUDA launches
-             one wrapper call makes, as torch.profiler sees them on the
-             device (they must equal the library's own launch log), and
-             the cluster dimension of each, from that log; the NTT in
+             kernel and plain times from CUDA events; the CUDA kernels
+             one wrapper call enqueues, as the kernel nodes of a CUDA
+             graph captured from that call (they must equal the
+             library's own launch log, and the graph's replay must again
+             equal the plain version), and the cluster dimension of
+             each, from that log; the NTT in
              both directions, BConv at the ModDown (``bconv``) and the
              rescale (``bconv_rescale``) shapes, also on all-(q-1)
              residues, ModUp over all digits (``modup_all``); each
@@ -48,14 +50,34 @@ exits non-zero):
              device's busy share;
   5. parity  the main path's program at N = 2^16 on a short chain (L=7,
              alpha=3, k=3) on the card and on the CPU, identical residues
-             after every op.
+             after every op;
+  6. bootstrap
+             bootstrapping at logN=10, L=23 (the JAX package's
+             tests/test_bootstrap.py: context seed 7, Hamming weight 8,
+             3 stage groups, K=5, Chebyshev degree 59) from level 0.  The
+             compiled program (exact, unfused) must equal the eager
+             ``bootstrap`` bit for bit at fewer ModUps, reconcile, decrypt
+             within BOOT_MAX_ERR at level >= 1, and feed the simulator;
+             ``exact=False`` must merge ModDowns within 1.5x the error;
+             ``run_batched`` (B=2) slots must equal single runs; the
+             exact, inexact and fused programs must give the CPU's
+             residues; every kernel must be launched, the NTT without a
+             cluster.  Prints seconds (build, compile, first and warm
+             run, eager, CPU replica), ModUp/ModDown counts, launches
+             and calls per shape, and the busy share of a warm run.
 
-Then the kernels' summary line, and last the device line.  Without a
-CUDA device, or without the repository beside it, it exits non-zero
-before printing any result.
+Then the kernels at the bootstrap phase's most frequent logN=10 shape of
+each (``bootstrap_kernels``), the kernels' summary line (launches on the
+main path and on the runtime and bootstrap paths, and a row
+per kernel at its logN=10 shape), and last the device line.  Latencies
+that the simulator (``repro_torch.sim``) returns model the paper's
+accelerators, not this card, and are named so.  Without a CUDA device,
+or without the repository beside it, it exits non-zero before printing
+any result.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import re
 import subprocess
@@ -88,7 +110,8 @@ PRODUCT_OPS = 2
 REDUCE_OPS = 2
 MONT_OPS = PRODUCT_OPS + REDUCE_OPS
 PEAK_OPS = None         # multiply results/s, from the card in phase_build
-SPIN_CYCLES = 2_000_000  # ~1 ms of the card's clock
+# CUgraphNodeType of a kernel node (cuda.h)
+CU_GRAPH_NODE_TYPE_KERNEL = 0
 # ModUps of ``program``: the multiply's relinearization, two rotations,
 # the hoisted sum (one for all its rotations) and the conjugation
 MODUPS = 5
@@ -106,27 +129,51 @@ RT_BS = 4
 RT_DEGREE = 7
 # the short chain at full ring width of the parity checks
 SHORT_KW = dict(logN=16, L=7, alpha=3, k=3)
+# The bootstrap phase: tests/test_bootstrap.py's parameters, context and
+# Bootstrapper, and its decryption bound
+BOOT_KW = dict(logN=10, L=23, alpha=3, k=4, q_bits=29, scale_bits=29,
+               q0_bits=30)
+BOOT_CTX = dict(seed=7, hamming_weight=8)
+BOOT_BTP = dict(n_groups=3, mod_K=5, cheb_degree=59)
+BOOT_MAX_ERR = 5e-3
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def device_kernels(fn) -> int:
-    """Kernels that torch.profiler sees run on the device during one
-    ``fn()``; copies, fills and the spin kernels around it are not
-    counted.  A spin kernel of ~1 ms on each side keeps ``fn``'s kernels
-    away from the edges of the profiler's window."""
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(SPIN_CYCLES)
-        fn()
-        torch.cuda._sleep(SPIN_CYCLES)
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and "spin_kernel" not in e.key
-               and not e.key.startswith(("Memcpy", "Memset")))
+def graph_kernels(fn):
+    """(kernels, output) of one ``fn()`` captured into a CUDA graph and
+    replayed: the kernel nodes of the graph are the device kernels the
+    call enqueues (copies and fills are nodes of other types), read from
+    the graph through the driver API, and the output is the replay's.
+    Capture also fails if the call launches on a stream other than the
+    current one or syncs with the host."""
+    drv = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc: int, what: str) -> None:
+        if rc != 0:
+            raise RuntimeError(f"{what}: CUresult {rc}")
+
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        out = fn()
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(drv.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(drv.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(drv.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        kinds.append(kind.value)
+    g.replay()
+    torch.cuda.synchronize()
+    out = out.clone()
+    g.reset()
+    return kinds.count(CU_GRAPH_NODE_TYPE_KERNEL), out
 
 
 def bconv_ops(batch: int, ls: int, ld: int, n: int, g_acc: int) -> int:
@@ -189,116 +236,170 @@ def phase_build(native) -> str:
 
 
 # ------------------------------------------------------------------ phase 2
-def phase_kernels(P, native) -> dict:
-    from repro_torch.core.poly import PolyContext
+def ntt_cost(shape, logn: int) -> tuple[int, float]:
+    """(bytes, multiply results) of one NTT over ``shape`` (..., l, N):
+    the rows in and out, and the l rows of both tables."""
+    l, n = shape[-2], shape[-1]
+    rows = int(np.prod(shape[:-1]))
+    return (2 * rows * n * 8 + 2 * l * n * 4,
+            MONT_OPS * rows * n * (1 + logn / 2))
+
+
+def bconv_cost(batch: int, ls: int, ld: int, n: int,
+               g_acc: int) -> tuple[int, int]:
+    return batch * (ls + ld) * n * 8, bconv_ops(batch, ls, ld, n, g_acc)
+
+
+def fused_ip_cost(shape, n_evk: int, with_pt: bool) -> tuple[int, int]:
+    """Digits (..., R, dnum, l, N), ``n_evk`` evk stacks (1 or R), the R
+    plaintexts, and the (..., 2, l, N) output."""
+    nrot, dnum, l, n = shape[-4:]
+    batch = int(np.prod(shape[:-4]))
+    words = (batch * nrot * dnum + n_evk * dnum * 2
+             + (nrot if with_pt else 0) + batch * 2) * l * n
+    return words * 8, MONT_OPS * batch * l * n * (
+        2 * nrot * dnum + (2 * nrot if with_pt else 0) + 2)
+
+
+def modup_cost(batch: int, l: int, l_ext: int, sizes, n: int,
+               logn: int) -> tuple[int, float]:
+    """int64 in and out, the inverse tables of the l source limbs and the
+    forward tables of the l_ext destination limbs, each read once."""
+    dnum = len(sizes)
+    return (batch * (l + dnum * l_ext) * n * 8 + 2 * (l + l_ext) * n * 4,
+            MONT_OPS * batch * n * (l * (1 + logn / 2) + sum(
+                (l_ext - ls) * (ls + 1 + logn / 2) for ls in sizes)))
+
+
+def exact(name, got, exp, shape) -> int:
+    torch.cuda.synchronize()
+    err = int((got - exp).abs().max())
+    if not torch.equal(got, exp):
+        raise AssertionError(f"{name}: kernel != plain at {shape}, "
+                             f"max abs err {err}")
+    return err
+
+
+def kernel_row(native, name, lib, kern, plain, cost, shape) -> dict:
+    """``kern()`` against ``plain()`` (exact), its CUDA launches a call
+    (the kernel nodes of a graph captured from one call, checked against
+    the library's launch log, and the replay exact too), the median
+    kernel and plain times, and its bound from ``cost`` = (bytes,
+    multiply results)."""
+    from repro_torch.kernels.timing import cuda_ms
+
+    want = plain()
+    err = exact(name, kern(), want, shape)
+    # one more call, captured into a graph and logged by the library
+    native.launch_log(lib)
+    cuda_launches, replay = graph_kernels(kern)
+    logged, cluster = native.launch_log(lib)
+    if cuda_launches != logged:
+        raise AssertionError(f"{name}: the captured graph holds "
+                             f"{cuda_launches} kernels, the library logged "
+                             f"{logged}")
+    exact(f"{name} (graph replay)", replay, want, shape)
+    b, by = bound(*cost)
+    return {"max_abs_err": err, "ms": cuda_ms(kern),
+            "plain_ms": cuda_ms(plain, reps=2, batches=3, hide_host=False),
+            "bound_ms": b, "bound_by": by, "library_ms": None,
+            "shape": list(shape), "cuda_launches": cuda_launches,
+            "cluster": cluster}
+
+
+def kernel_at(native, P, pc, rng, name: str, dims, primes=None) -> dict:
+    """``kernel_row`` of kernel ``name`` at call shape ``dims``, as
+    ``native.CALLS`` keys it, on random residues of ``P``'s primes:
+
+    - ``ntt`` / ``ntt_inverse``: the input (..., l, N), of the first l
+      primes of the chain unless ``primes`` is given;
+    - ``bconv``: (..., k, l) from the special primes to the first l (a
+      ModDown); ``bconv_rescale``: (..., 1, l) from prime l to the l
+      below it; both also exact on all-(q-1) residues;
+    - ``fused_ip``: digits (..., R, dnum, l_ext, N), then the number of
+      evk stacks and whether plaintexts come with them;
+    - ``modup_all``: the input (..., l, N), every digit of level l-1."""
     from repro_torch.kernels.bconv.ops import BConvConsts, bconv, bconv_plain
     from repro_torch.kernels.fused_ip.ops import IPConsts, fused_ip, fused_ip_plain
     from repro_torch.kernels.modup.ops import ModUpConsts, modup, modup_plain
     from repro_torch.kernels.ntt.ops import (
         ntt_fwd, ntt_fwd_plain, ntt_inv, ntt_inv_plain,
     )
-    from repro_torch.kernels.timing import cuda_ms
 
     dev = torch.device("cuda")
-    pc = PolyContext(P, device=dev)
-    rng = np.random.default_rng(SEED)
-    N, logn = P.N, P.logN
-    level = P.L
-    base = P.q_chain(level)
-    ext = base + P.p_primes
-    l, k, l_ext = len(base), P.k, len(ext)
-    groups = P.digit_groups(level)
-    dnum = len(groups)
-    out = {}
-
-    def exact(name, got, exp, shape) -> int:
-        torch.cuda.synchronize()
-        err = int((got - exp).abs().max())
-        if not torch.equal(got, exp):
-            raise AssertionError(f"{name}: kernel != plain at {shape}, "
-                                 f"max abs err {err}")
-        return err
-
-    def record(name, lib, kern, plain, nbytes, ops, shape):
-        err = exact(name, kern(), plain(), shape)
-        # one more call, watched by the profiler and by the library's log;
-        # a session that sees no kernel at all (the profiler has lost
-        # its records on the H100) is repeated, at most 3 times
-        for sessions in range(1, 4):
-            native.launch_log(lib)
-            cuda_launches = device_kernels(kern)
-            logged, cluster = native.launch_log(lib)
-            if cuda_launches:
-                break
-        if cuda_launches != logged:
-            raise AssertionError(f"{name}: the profiler saw {cuda_launches} "
-                                 f"kernels, the library logged {logged}")
-        b, by = bound(nbytes, ops)
-        out[name] = {"max_abs_err": err, "ms": cuda_ms(kern),
-                     "plain_ms": cuda_ms(plain, reps=2, batches=3,
-                                         hide_host=False),
-                     "bound_ms": b, "bound_by": by, "library_ms": None,
-                     "shape": shape, "cuda_launches": cuda_launches,
-                     "cluster": cluster, "profiler_sessions": sessions}
-
-    # NTT: the ModDown forward transform of both accumulators, 2 x l rows
-    x = residues(rng, base, (2, l, N), dev)
-    tabs = pc.tabs
-    fwd_tables = tabs.plain_rows(base, dev, inverse=False)
-    record("ntt", "ntt", lambda: ntt_fwd(x, base, tabs),
-           lambda: ntt_fwd_plain(x, *fwd_tables),
-           2 * 2 * l * N * 8 + 2 * l * N * 4,
-           MONT_OPS * 2 * l * N * (1 + logn / 2), [2, l, N])
-    # and the ModDown inverse transform of the P limbs, 2 x k rows
-    xp = residues(rng, P.p_primes, (2, k, N), dev)
-    inv_tables = tabs.plain_rows(P.p_primes, dev, inverse=True)
-    record("ntt_inverse", "ntt", lambda: ntt_inv(xp, P.p_primes, tabs),
-           lambda: ntt_inv_plain(xp, *inv_tables),
-           2 * 2 * k * N * 8 + 2 * k * N * 4,
-           MONT_OPS * 2 * k * N * (1 + logn / 2), [2, k, N])
-
-    # BConv: ModDown P -> Q of both accumulators, and the rescale's last
-    # prime -> the rest; exact on random and on all-(q-1) residues
-    c = BConvConsts(pc.rns, P.p_primes, base, dev)
-    cr = BConvConsts(pc.rns, base[-1:], base[:-1], dev)
-    x1 = residues(rng, base[-1:], (1, N), dev)
-    for name, cc, xx, shape in (("bconv", c, xp, [2, k, l, N]),
-                                ("bconv_rescale", cr, x1, [1, l - 1, N])):
-        top = (cc.src_q[:, None] - 1).expand(xx.shape).contiguous()
+    N, logn, k, tabs = P.N, P.logN, P.k, pc.tabs
+    dims = list(dims)
+    if name in ("ntt", "ntt_inverse"):
+        inverse = name == "ntt_inverse"
+        pr = list(primes or (P.q_primes + P.p_primes)[:dims[-2]])
+        x = residues(rng, pr, tuple(dims), dev)
+        kern = ntt_inv if inverse else ntt_fwd
+        plain = ntt_inv_plain if inverse else ntt_fwd_plain
+        tables = tabs.plain_rows(pr, dev, inverse=inverse)
+        return kernel_row(native, name, "ntt", lambda: kern(x, pr, tabs),
+                          lambda: plain(x, *tables), ntt_cost(dims, logn),
+                          dims)
+    if name in ("bconv", "bconv_rescale"):
+        ls, ld = dims[-2:]
+        src = (P.p_primes if name == "bconv"
+               else P.q_primes[ld:ld + ls])
+        cc = BConvConsts(pc.rns, src, P.q_chain(ld - 1), dev)
+        x = residues(rng, src, tuple(dims[:-2]) + (ls, N), dev)
+        top = (cc.src_q[:, None] - 1).expand(x.shape).contiguous()
         exact(name, bconv(top, cc), bconv_plain(
-            top, cc.qhat_inv, cc.src_q, cc.qhat_mod, cc.dst_q), shape)
-        batch = xx.numel() // (cc.ls * N)
-        record(name, "bconv", lambda cc=cc, xx=xx: bconv(xx, cc),
-               lambda cc=cc, xx=xx: bconv_plain(
-                   xx, cc.qhat_inv, cc.src_q, cc.qhat_mod, cc.dst_q),
-               batch * (cc.ls + cc.ld) * N * 8,
-               bconv_ops(batch, cc.ls, cc.ld, N, cc.g_acc), shape)
+            top, cc.qhat_inv, cc.src_q, cc.qhat_mod, cc.dst_q), dims)
+        return kernel_row(
+            native, name, "bconv", lambda: bconv(x, cc),
+            lambda: bconv_plain(x, cc.qhat_inv, cc.src_q, cc.qhat_mod,
+                                cc.dst_q),
+            bconv_cost(x.numel() // (ls * N), ls, ld, N, cc.g_acc), dims)
+    if name == "fused_ip":
+        shape, n_evk, with_pt = dims[:-2], dims[-2], bool(dims[-1])
+        nrot, dnum, l_ext = shape[-4:-1]
+        ext = P.q_chain(l_ext - k - 1) + P.p_primes
+        ipc = IPConsts(ext, dev)
+        dig = residues(rng, ext, tuple(shape), dev)
+        evk = residues(rng, ext, (n_evk, dnum, 2, l_ext, N), dev)
+        pt = residues(rng, ext, (nrot, l_ext, N), dev) if with_pt else None
+        return kernel_row(native, name, "fused_ip",
+                          lambda: fused_ip(dig, evk, pt, ipc),
+                          lambda: fused_ip_plain(dig, evk, pt, ipc.q),
+                          fused_ip_cost(shape, n_evk, with_pt), dims)
+    assert name == "modup_all", name
+    l = dims[-2]
+    base = P.q_chain(l - 1)
+    groups = P.digit_groups(l - 1)
+    mc = ModUpConsts(pc.rns, tabs, groups, base, base + P.p_primes, dev)
+    xm = residues(rng, base, tuple(dims), dev)
+    return kernel_row(native, name, "modup", lambda: modup(xm, mc),
+                      lambda: modup_plain(xm, mc),
+                      modup_cost(xm.numel() // (l * N), l, l + k,
+                                 [len(D) for D in groups], N, logn), dims)
 
-    # fused IP: a hoisted block of 4 rotations with plaintexts
-    R = 4
-    ipc = IPConsts(ext, dev)
-    dig = residues(rng, ext, (R, dnum, l_ext, N), dev)
-    evk = residues(rng, ext, (R, dnum, 2, l_ext, N), dev)
-    pt = residues(rng, ext, (R, l_ext, N), dev)
-    record("fused_ip", "fused_ip", lambda: fused_ip(dig, evk, pt, ipc),
-           lambda: fused_ip_plain(dig, evk, pt, ipc.q),
-           (R * dnum + 2 * R * dnum + R + 2) * l_ext * N * 8,
-           MONT_OPS * l_ext * N * (2 * R * dnum + 2 * R + 2),
-           [R, dnum, l_ext, N])
 
-    # ModUp of every digit of one level-35 polynomial (B = 1): int64 in
-    # and out, the inverse tables of the l source limbs and the forward
-    # tables of the l_ext destination limbs, each read once
-    mc = ModUpConsts(pc.rns, tabs, groups, base, ext, dev)
-    xm = residues(rng, base, (l, N), dev)
-    sizes = [len(D) for D in groups]
-    record("modup_all", "modup", lambda: modup(xm, mc),
-           lambda: modup_plain(xm, mc),
-           l * N * 8 + dnum * l_ext * N * 8 + 2 * l * N * 4
-           + 2 * l_ext * N * 4,
-           MONT_OPS * N * (l * (1 + logn / 2) + sum(
-               (l_ext - ls) * (ls + 1 + logn / 2) for ls in sizes)),
-           [l, dnum, l_ext, N])
+def phase_kernels(P, native) -> dict:
+    from repro_torch.core.poly import PolyContext
+
+    pc = PolyContext(P, device=torch.device("cuda"))
+    rng = np.random.default_rng(SEED)
+    N, k, l, R = P.N, P.k, P.L + 1, 4
+    dnum, l_ext = len(P.digit_groups(P.L)), l + k
+    shapes = {
+        # the ModDown forward transform of both accumulators, 2 x l rows,
+        # and its inverse transform of the P limbs, 2 x k rows
+        "ntt": ([2, l, N], None),
+        "ntt_inverse": ([2, k, N], P.p_primes),
+        # ModDown P -> Q of both accumulators; the rescale's last prime
+        # -> the rest
+        "bconv": ([2, k, l], None),
+        "bconv_rescale": ([1, l - 1], None),
+        # a hoisted block of 4 rotations with plaintexts
+        "fused_ip": ([R, dnum, l_ext, N, R, 1], None),
+        # ModUp of every digit of one level-35 polynomial (B = 1)
+        "modup_all": ([l, N], None),
+    }
+    out = {name: kernel_at(native, P, pc, rng, name, dims, primes)
+           for name, (dims, primes) in shapes.items()}
     emit({"phase": "kernels", "results": out})
     return out
 
@@ -374,6 +475,16 @@ def device_profile(fn) -> dict:
     return {"profiled_wall_s": wall,
             "device_ms": total_ms if per else None,
             "top_ms": top if per else None}
+
+
+def busy_profile(fn) -> dict:
+    """``device_profile`` of ``fn`` with the device's busy share of the
+    profiled wall time."""
+    prof = device_profile(fn)
+    if prof["device_ms"] is not None:
+        prof["device_busy_share"] = (prof["device_ms"] / 1e3
+                                     / prof["profiled_wall_s"])
+    return prof
 
 
 def expected(prep: dict) -> dict:
@@ -533,27 +644,31 @@ def same_ct(a, b) -> bool:
             and torch.equal(a.c1.cpu(), b.c1.cpu()))
 
 
-def counted_run(native, fn) -> tuple:
+def counted_run(native, fn, path: str = "runtime") -> tuple:
     """``fn()`` with the launch counts set to 0 just before it and read
-    just after: (result, wall seconds, launches, CUDA launches, calls)."""
+    just after: (result, wall seconds, launches, CUDA launches, calls,
+    clusters), where ``clusters`` holds each library's cluster dimension
+    of its first eight launches."""
     native.reset_counts()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(native.LAUNCHES)
-    cuda_launches = {k: native.launch_log(k)[0] for k in launches}
+    logs = {k: native.launch_log(k) for k in launches}
+    cuda_launches = {k: v[0] for k, v in logs.items()}
+    clusters = {k: v[1] for k, v in logs.items()}
     calls = {f"{f} {list(shape)}": v
              for (f, shape), v in sorted(native.CALLS.items())}
     idle = [k for k, v in launches.items() if v == 0]
     if idle:
-        raise AssertionError(f"kernels not launched on the runtime path: "
+        raise AssertionError(f"kernels not launched on the {path} path: "
                              f"{idle}")
     for k, n in cuda_launches.items():
         if n != CUDA_PER_CALL[k] * launches[k]:
-            raise AssertionError(f"runtime {k}: {n} CUDA launches for "
+            raise AssertionError(f"{path} {k}: {n} CUDA launches for "
                                  f"{launches[k]} wrapper calls")
-    return out, wall, launches, cuda_launches, calls
+    return out, wall, launches, cuda_launches, calls, clusters
 
 
 def step_seconds(ex, comp, inputs) -> dict:
@@ -606,7 +721,8 @@ def phase_runtime(P, native) -> dict:
             ("fused_batched", comps[True],
              lambda: ex.run_batched(comps[True], {"x": cts},
                                     with_report=True))):
-        res, wall, launches, cuda_launches, calls = counted_run(native, fn)
+        res, wall, launches, cuda_launches, calls, _ = counted_run(native,
+                                                                  fn)
         rec = res.report.reconcile()
         if not rec["counts_match"]:
             raise AssertionError(f"runtime {name}: counts do not reconcile "
@@ -668,10 +784,7 @@ def phase_runtime(P, native) -> dict:
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     per_step = step_seconds(ex, comps[False], {"x": cts[0]})
-    prof = device_profile(lambda: ex.run(comps[False], {"x": cts[0]}))
-    if prof["device_ms"] is not None:
-        prof["device_busy_share"] = (prof["device_ms"] / 1e3
-                                     / prof["profiled_wall_s"])
+    prof = busy_profile(lambda: ex.run(comps[False], {"x": cts[0]}))
 
     # the fused program on the short chain, card against CPU
     P7 = CKKSParams(**SHORT_KW)
@@ -706,17 +819,17 @@ def phase_runtime(P, native) -> dict:
     return res
 
 
-def runtime_launches(rt: dict, name: str, k: int) -> int:
-    """Wrapper calls of kernel row ``name`` in the runtime phase's three
-    counted runs."""
+def path_launches(runs, name: str) -> int:
+    """Wrapper calls of kernel row ``name`` in counted runs ``runs``, each
+    a dict with the run's ``calls``, ``launches`` and the params' ``k``."""
     total = 0
-    for run in rt["runs"].values():
+    for run in runs:
         calls = run["calls"]
         if name in ("ntt", "ntt_inverse"):
             prefix = "ntt_forward " if name == "ntt" else "ntt_inverse "
             total += sum(v for c, v in calls.items() if c.startswith(prefix))
         elif name in ("bconv", "bconv_rescale"):
-            kinds = bconv_calls(calls, k)
+            kinds = bconv_calls(calls, run["k"])
             total += kinds["moddown" if name == "bconv" else "rescale"]
         else:
             total += run["launches"]["fused_ip" if name == "fused_ip"
@@ -738,6 +851,203 @@ def phase_parity() -> None:
           "seconds": time.perf_counter() - t0})
 
 
+# ------------------------------------------------------------------ phase 6
+def kw_str(kw: dict) -> str:
+    return " ".join(f"{k}={v}" for k, v in kw.items())
+
+
+def counted(native, fn, path: str, P) -> tuple:
+    """``counted_run`` of ``fn`` at params ``P``: its result and the
+    run's record."""
+    res, wall, launches, cuda_launches, calls, clusters = counted_run(
+        native, fn, path)
+    return res, {"s": wall, "k": P.k, "logn": P.logN, "launches": launches,
+                 "cuda_launches": cuda_launches, "calls": calls,
+                 "clusters": clusters}
+
+
+def max_err(ctx, ct, want) -> float:
+    """Largest slot error of ``ct``'s decryption against ``want`` (its
+    real part against a real ``want``)."""
+    got = ctx.decrypt(ct)
+    if np.isrealobj(want):
+        got = got.real
+    if got.shape != want.shape or not np.all(np.isfinite(got)):
+        raise AssertionError(f"bad decryption {got.shape}")
+    return float(np.abs(got - want).max())
+
+
+def phase_bootstrap(native) -> dict:
+    """Bootstrapping at logN=10, L=23 (tests/test_bootstrap.py's shape),
+    eager and compiled, on the card; see the module docstring."""
+    from repro_torch.core.bootstrap import Bootstrapper
+    from repro_torch.core.ckks import CKKSContext
+    from repro_torch.core.params import CKKSParams
+    from repro_torch.runtime import ProgramExecutor
+    from repro_torch.sim import HE2_SM
+
+    t_phase = time.perf_counter()
+    P = CKKSParams(**BOOT_KW)
+    rng = np.random.default_rng(SEED + 8)
+    nh = P.num_slots
+    zs = [(rng.normal(size=nh) + 1j * rng.normal(size=nh)) * 0.01
+          for _ in range(2)]
+    secs = {}
+    t0 = time.perf_counter()
+    ctx = CKKSContext(P, device="cuda", **BOOT_CTX)
+    btp = Bootstrapper(ctx, **BOOT_BTP)
+    secs["build"] = time.perf_counter() - t0
+    cts = [ctx.encrypt(z, level=0) for z in zs]
+    t0 = time.perf_counter()
+    comps = {"exact": btp.compile(input_scale=cts[0].scale),
+             "inexact": btp.compile(input_scale=cts[0].scale, exact=False),
+             "fused": btp.compile(input_scale=cts[0].scale, fusion=True)}
+    secs["compile"] = time.perf_counter() - t0
+    ex = ProgramExecutor(ctx)
+
+    def run(name, i=0, report=True):
+        before = ctx.counters.snapshot()
+        res = ex.run(comps[name], {"ct": cts[i]}, with_report=report)
+        return res, ctx.counters.delta(before)
+
+    # the compiled program, exact and unfused: its first run is counted
+    (res, ops), rec = counted(native, lambda: run("exact"), "bootstrap",
+                              P)
+    secs["first_run"] = rec["s"]
+    out = res["out"]
+    check = res.report.reconcile()
+    if not check["counts_match"] or not res.report.validate_plan_shapes(P):
+        raise AssertionError(f"bootstrap: counts do not reconcile {check}")
+    if any(c != 1 for c in rec["clusters"]["ntt"]):
+        raise AssertionError(f"bootstrap: NTT clusters {rec['clusters']} "
+                             f"at logN={P.logN}, expected 1")
+    t0 = time.perf_counter()
+    run("exact", report=False)
+    torch.cuda.synchronize()
+    secs["warm_run"] = time.perf_counter() - t0
+    # ModRaise lifts through centered_crt on the host, as the reference's
+    t0 = time.perf_counter()
+    ctx.mod_raise(cts[0])
+    torch.cuda.synchronize()
+    secs["mod_raise"] = time.perf_counter() - t0
+
+    # the eager pipeline: the same residues at more ModUps
+    before = ctx.counters.snapshot()
+    t0 = time.perf_counter()
+    eager = btp.bootstrap(cts[0])
+    torch.cuda.synchronize()
+    secs["eager"] = time.perf_counter() - t0
+    eager_ops = ctx.counters.delta(before)
+    if not same_ct(out, eager):
+        raise AssertionError("bootstrap: compiled output differs from the "
+                             "eager bootstrap")
+    if not ops.modup < eager_ops.modup:
+        raise AssertionError(f"bootstrap: {ops.modup} compiled ModUps, "
+                             f"eager {eager_ops.modup}")
+    err = max_err(ctx, eager, zs[0])
+    if eager.level < 1 or err >= BOOT_MAX_ERR:
+        raise AssertionError(f"bootstrap: level {eager.level}, error {err}")
+    sim_s = res.report.scheduled_result(comps["exact"], HE2_SM).latency_s
+    if not sim_s > 0:
+        raise AssertionError("bootstrap: no scheduled latency")
+
+    # exact=False: merged giant-step ModDowns, within the error bound
+    res_in, ops_in = run("inexact")
+    err_in = max_err(ctx, res_in["out"], zs[0])
+    if not (comps["inexact"].n_multi > 0 and ops_in.moddown < ops.moddown
+            and res_in.report.reconcile()["counts_match"]
+            and err_in <= 1.5 * err + 1e-3):
+        raise AssertionError(f"bootstrap exact=False: {ops_in.moddown} "
+                             f"ModDowns (exact {ops.moddown}), error "
+                             f"{err_in} (exact {err})")
+    res_f, ops_f = run("fused")
+    if not res_f.report.reconcile()["counts_match"]:
+        raise AssertionError("bootstrap fusion=True: counts do not "
+                             "reconcile")
+
+    # B=2: each slot equals its single run
+    res_b, rec_b = counted(
+        native, lambda: ex.run_batched(comps["exact"], {"ct": cts},
+                                       with_report=True),
+        "bootstrap", P)
+    if not (same_ct(res_b["out"][0], out) and same_ct(
+            res_b["out"][1], run("exact", 1, report=False)[0]["out"])):
+        raise AssertionError("bootstrap: a batch slot differs from its "
+                             "single run")
+    prof = busy_profile(lambda: run("exact", report=False))
+
+    # the same programs on the CPU, in the same order (the same keys)
+    t0 = time.perf_counter()
+    cpu = CKKSContext(P, device="cpu", **BOOT_CTX)
+    cpu_cts = [cpu.encrypt(z, level=0) for z in zs]
+    cpu_ex = ProgramExecutor(cpu)
+    for name, got in (("exact", out), ("inexact", res_in["out"]),
+                      ("fused", res_f["out"])):
+        if not same_ct(got, cpu_ex.run(comps[name],
+                                       {"ct": cpu_cts[0]})["out"]):
+            raise AssertionError(f"bootstrap {name}: card and CPU residues "
+                                 f"differ")
+    secs["cpu_replica"] = time.perf_counter() - t0
+    res = {"phase": "bootstrap",
+           "params": kw_str(BOOT_KW), "bootstrapper": BOOT_BTP,
+           "level_out": out.level,
+           "max_err": err, "bound": BOOT_MAX_ERR, "inexact_err": err_in,
+           "compiled_equals_eager": True, "batch_slots_equal": True,
+           "cpu_identical": ["exact", "inexact", "fused"],
+           "modup_moddown": {"compiled": [ops.modup, ops.moddown],
+                             "eager": [eager_ops.modup, eager_ops.moddown],
+                             "inexact": [ops_in.modup, ops_in.moddown],
+                             "fused": [ops_f.modup, ops_f.moddown]},
+           "steps": {k: len(c.steps) for k, c in comps.items()},
+           "n_multi": comps["inexact"].n_multi,
+           "runs": {"compiled": rec, "batched": rec_b},
+           "seconds_by_stage": secs, "profile": prof,
+           "simulator_he2_sm_latency_s": sim_s,
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    return res
+
+
+def slice_rows(native, boot: dict) -> dict:
+    """Each kernel at the bootstrap phase's most frequent logN=10 shape
+    (from its counted compiled run's ``native.CALLS``) against its plain
+    version, with its bound: {name: (row, calls at the shape, key)}."""
+    from repro_torch.core.params import CKKSParams
+    from repro_torch.core.poly import PolyContext
+
+    P = CKKSParams(**BOOT_KW)
+    pc = PolyContext(P, device=torch.device("cuda"))
+    rng = np.random.default_rng(SEED + 14)
+    calls = boot["runs"]["compiled"]["calls"]
+
+    def top(fn, keep=lambda dims: True):
+        """(shape, calls) of entry point ``fn``'s most frequent shape."""
+        cands = [(v, json.loads(c.partition(" ")[2])) for c, v in
+                 calls.items() if c.partition(" ")[0] == fn
+                 and keep(json.loads(c.partition(" ")[2]))]
+        v, dims = max(cands, key=lambda t: t[0])
+        return dims, v
+
+    entry = {
+        "ntt": ("ntt_forward", lambda d: True),
+        "ntt_inverse": ("ntt_inverse", lambda d: True),
+        "bconv": ("bconv", lambda d: d[-2] == P.k and len(d) >= 3
+                  and d[-3] == 2),
+        "bconv_rescale": ("bconv", lambda d: d[-2] == 1),
+        "fused_ip": ("fused_ip", lambda d: True),
+        "modup_all": ("modup_all", lambda d: True),
+    }
+    rows = {}
+    for name, (fn, keep) in entry.items():
+        dims, v = top(fn, keep)
+        rows[name] = (kernel_at(native, P, pc, rng, name, dims), v,
+                      f"{fn} {dims}")
+    emit({"phase": "bootstrap_kernels", "params": kw_str(BOOT_KW),
+          "results": {n: {**r, "calls_at_shape": v, "key": key}
+                      for n, (r, v, key) in rows.items()}})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -751,6 +1061,8 @@ def main() -> int:
     main_res = phase_main(PAPER_PARAMS, native)
     rt = phase_runtime(PAPER_PARAMS, native)
     phase_parity()
+    boot = phase_bootstrap(native)
+    boot_rows = slice_rows(native, boot)
     ntt_src = ("src/repro_torch/csrc/ntt.cu", "src/repro/kernels/ntt/ntt.py:70")
     calls = main_res["calls"]
     bconv_main = bconv_calls(calls, PAPER_PARAMS.k)
@@ -771,17 +1083,34 @@ def main() -> int:
                       "src/repro/kernels/modup/modup.py:71",
                       main_res["launches"]["modup"]),
     }
+    paths = {
+        "runtime_launches": [dict(r, k=PAPER_PARAMS.k,
+                                  logn=PAPER_PARAMS.logN)
+                             for r in rt["runs"].values()],
+        "bootstrap_launches": list(boot["runs"].values()),
+    }
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "cuda_launches", "cluster")
     rows = []
     for name, (src, rep, launches) in sources.items():
         r = kern[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": launches,
-                     "runtime_launches": runtime_launches(rt, name,
-                                                          PAPER_PARAMS.k),
-                     **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                          "bound_ms", "bound_by",
-                                          "library_ms", "cuda_launches",
-                                          "cluster")}})
+                     **{p: path_launches(runs, name)
+                        for p, runs in paths.items()},
+                     **{k: r[k] for k in keys}})
+    # the bootstrap path's own shapes: ``launches`` counts the calls at
+    # the row's shape (and ring degree) in that path's counted runs
+    for name, (r, _, key) in boot_rows.items():
+        src, rep, _ = sources[name]
+        at_shape = {p: sum(run["calls"].get(key, 0) for run in runs
+                           if run["logn"] == BOOT_KW["logN"])
+                    for p, runs in paths.items()}
+        rows.append({"name": f"{name}_logn10", "route": "cuda",
+                     "source": src, "replaces": rep,
+                     "launches": at_shape["bootstrap_launches"],
+                     **at_shape, "shape": r["shape"],
+                     **{k: r[k] for k in keys}})
     emit({"kernels": rows})
     print(f"card: {smi}; total {time.perf_counter() - t_start:.1f} s",
           flush=True)

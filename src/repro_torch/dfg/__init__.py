@@ -3,13 +3,12 @@
 Pipeline:  trace/generate DFG  ->  PKB identify (layering)
         ->  degree-minimized expansion  ->  PKB fusion (DP evaluator)
         ->  hoisting rewrite  ->  IRF/EVF/hybrid dataflow mapping
-        ->  compiled functional execution on the keyswitch engine
-            (``repro_torch.runtime``).
+        ->  repro_torch.sim (performance model) or repro_torch.runtime
+            (compiled functional execution on the keyswitch engine).
 
-A copy of the JAX package's ``dfg/`` modules that the compiled runtime
-imports (``graph``, ``trace``, ``pkb``, ``hoist``, ``fusion``; numpy
-only).  The dataflow mapping and the program generators wait for the
-port of the simulator.
+A copy of the JAX package's ``dfg/`` (numpy only): ``graph``, ``trace``,
+``pkb``, ``hoist``, ``fusion``, ``mapping`` and the paper's program
+generators ``programs``.
 
 ``repro_torch.runtime.compile.TraceContext`` builds this IR from unmodified
 program code and ``repro_torch.runtime.lower`` turns identified/fused PKBs

@@ -91,5 +91,7 @@ def fused_ip(digits: torch.Tensor, evk: torch.Tensor, pt: torch.Tensor | None,
         native.ptr(pt), native.ptr(out), native.ptr(c.q32),
         native.ptr(c.qn32), native.ptr(c.fix[pt is not None]), batch, nrot,
         int(evk.shape[0] == 1), dnum, l, n.bit_length() - 1,
+        shape=("fused_ip", tuple(digits.shape)
+               + (int(evk.shape[0]), int(pt is not None))),
     )
     return out

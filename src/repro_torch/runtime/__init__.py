@@ -6,9 +6,10 @@ lowering, the same steps, executed on the port's ``CKKSContext`` and
 for it):
 
   trace   (compile.TraceContext)  — run unmodified program code
-          (``core.linear`` matvec/BSGS, ``core.polyeval`` Chebyshev)
-          against a symbolic context that mirrors ``CKKSContext`` and
-          records a ``dfg.trace.ProgramBuilder`` graph;
+          (``core.linear`` matvec/BSGS, ``core.polyeval`` Chebyshev,
+          ``core.bootstrap`` C2S/EvalMod/S2C) against a symbolic
+          context that mirrors ``CKKSContext`` and records a
+          ``dfg.trace.ProgramBuilder`` graph;
   compile (compile.compile_program) — identify PKBs, optionally run the
           ``dfg.fusion.optimal_fusion`` DP, and lower (lower.py) fused
           plans to keyswitch-family steps: hoisted-rotation-sum blocks,
@@ -22,9 +23,10 @@ for it):
           independent ciphertexts along a leading axis of every tensor;
   report  (report.ExecutionReport) — actual ModUp/ModDown/IP/NTT counts
           plus the engine's real (dnum, l_ext, N) plan shapes, cross-
-          checked against ``dfg.hoist``'s predicted OpVolumes.  Feeding
-          the volumes to the group scheduler waits for the port of the
-          simulator.
+          checked against ``dfg.hoist``'s predicted OpVolumes and fed
+          into the ``sim.schedule`` group pipeline
+          (``report.program_blocks`` exposes the same per-block volumes
+          for any packed block stream, not just one program).
 
 A ``CompiledProgram`` is a key-free object: the engine resolves evk and
 plaintext tensors per dispatch, so one compiled program serves any

@@ -10,7 +10,8 @@ plus the exact encode parameters the eager path would use), and
 ``mod_raise`` becomes an opaque ``OpKind.MOD_RAISE`` boundary node the
 executor replays via ``CKKSContext.mod_raise``.  Unmodified program
 code (``core.linear.matvec_diag``/``matvec_bsgs``,
-``core.polyeval.eval_chebyshev``) therefore runs EITHER eagerly or under the tracer; every level/scale
+``core.polyeval.eval_chebyshev``, ``core.bootstrap.Bootstrapper``)
+therefore runs EITHER eagerly or under the tracer; every level/scale
 decision the eager code makes is replayed symbolically and baked into
 node attributes, which is what keeps the compiled execution bit-exact
 with the eager path.

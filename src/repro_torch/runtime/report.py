@@ -3,13 +3,17 @@
 ``build_report`` pairs the op counters actually incremented during an
 execution (ModUp/ModDown/IP invocations + NTT/BConv work derived from
 the engine's real (dnum, l_ext, N) plan shapes) with the OpVolumes that
-``repro_torch.dfg.hoist`` predicts for the same lowered plan.
-``reconcile`` asserts the counts agree exactly.
+``repro_torch.dfg.hoist`` predicts for the same lowered plan.  ``reconcile``
+asserts the counts agree exactly; ``scheduled_result`` feeds the
+per-block volumes into the event-driven group scheduler
+(``repro_torch.sim.schedule``) so a functional execution yields the paper's
+performance-model latency for the very plan that just ran: a latency of
+the modelled accelerator, not of the device that ran the plan.
 
-A copy of the JAX package's ``runtime/report.py`` without the two parts
-that feed the simulator's group scheduler (``program_blocks`` and
-``ExecutionReport.scheduled_result``): they wait for the port of the
-simulator.
+``program_blocks`` exposes the same lowering->sim-block translation as
+a standalone function: the scheduler consumes ANY packed block stream.
+
+A copy of the JAX package's ``runtime/report.py``.
 """
 from __future__ import annotations
 
@@ -22,7 +26,8 @@ from repro_torch.dfg.hoist import (
 )
 from repro_torch.runtime.compile import CompiledProgram
 from repro_torch.runtime.lower import (
-    HoistedStep, MultiHoistedStep, MultiRelinStep, RelinStep,
+    HoistedStep, KeyswitchFamilyStep, MultiHoistedStep, MultiRelinStep,
+    RelinStep,
 )
 
 
@@ -140,6 +145,32 @@ def step_volumes(compiled: CompiledProgram, step,
     return None
 
 
+def program_blocks(compiled: CompiledProgram, batch: int = 1) -> list:
+    """Sim blocks of one compiled program executed over ``batch`` cts.
+
+    Keyswitch-family steps stream through 2*dnum pipeline groups with
+    per-digit ModUp leg weights; volumes scale linearly with the batch.
+    Used by ``ExecutionReport.scheduled_result``."""
+    from repro_torch.sim.engine import Block
+
+    alpha = compiled.params.alpha
+    blocks = []
+    for step in compiled.steps:
+        v = step_volumes(compiled, step)
+        if v is None:
+            continue
+        if isinstance(step, KeyswitchFamilyStep):
+            # rotation AND relin blocks stream through 2*dnum
+            # pipeline groups with per-digit ModUp leg weights
+            dnum = -(-(step.level + 1) // alpha)
+        elif v.keyswitch_count:
+            dnum = -(-compiled.dfg.nodes[step.nid].limbs // alpha)
+        else:
+            dnum = 1
+        blocks.append(Block(v.scaled(batch), max(dnum, 1)))
+    return blocks
+
+
 def predicted_volumes(compiled: CompiledProgram,
                       shared_modup: bool = True) -> OpVolumes:
     total = OpVolumes()
@@ -192,6 +223,16 @@ class ExecutionReport:
             if l_ext != level + 1 + params.k or N != params.N:
                 return False
         return True
+
+    def scheduled_result(self, compiled: CompiledProgram, hw,
+                         mode: str = "pipelined"):
+        """Feed the executed plan's per-block volumes into the sim's
+        event-driven group scheduler -> predicted latency of the
+        modelled hardware ``hw``."""
+        from repro_torch.sim.engine import simulate_blocks
+
+        return simulate_blocks(program_blocks(compiled, self.batch), hw,
+                               name="runtime", mode=mode)
 
 
 def build_report(compiled: CompiledProgram, ctx, executed: OpCounters,

@@ -282,3 +282,36 @@ def test_cuda_runtime_equals_cpu(cuda, fusion):
         assert (a.level, a.scale) == (b.level, b.scale)
         assert torch.equal(a.c0.cpu(), b.c0) and torch.equal(a.c1.cpu(), b.c1)
     assert torch.equal(outs[1][0].c0, outs[1][1].c0)
+
+
+@pytest.mark.cuda
+def test_cuda_bootstrap_equals_cpu(cuda):
+    """The compiled bootstrap at logN=8, L=19 (the shape of
+    tests/test_runtime_bootstrap.py:157) gives the CPU's residues on the
+    card; on the card its ``run_batched`` slot and the eager
+    ``bootstrap`` equal its ``run``."""
+    from repro_torch.core.bootstrap import Bootstrapper
+    from repro_torch.core.ckks import CKKSContext
+    from repro_torch.runtime import ProgramExecutor
+
+    p = CKKSParams(logN=8, L=19, alpha=4, k=4, q_bits=29, scale_bits=29,
+                   q0_bits=30)
+    rng = np.random.default_rng(157)
+    zs = [(rng.normal(size=p.num_slots) + 1j * rng.normal(size=p.num_slots))
+          * 0.01 for _ in range(2)]
+    outs = {}
+    for dev in (cuda, "cpu"):
+        ctx = CKKSContext(p, seed=7, hamming_weight=8, device=dev)
+        btp = Bootstrapper(ctx, n_groups=2, mod_K=3, cheb_degree=27)
+        cts = [ctx.encrypt(z, level=0) for z in zs]
+        comp = btp.compile(input_scale=cts[0].scale)
+        ex = ProgramExecutor(ctx)
+        outs[str(dev)] = ex.run(comp, {"ct": cts[0]})["out"]
+        if dev == cuda:
+            card = [ex.run_batched(comp, {"ct": cts})["out"][0],
+                    btp.bootstrap(cts[0])]
+    got, want = outs[str(cuda)], outs["cpu"]
+    for ct in [got] + card:
+        assert (ct.level, ct.scale) == (want.level, want.scale)
+        assert torch.equal(ct.c0.cpu(), want.c0)
+        assert torch.equal(ct.c1.cpu(), want.c1)
