@@ -67,9 +67,38 @@ exits non-zero):
              and calls per shape, and the busy share of a warm run.
 
 Then the kernels at the bootstrap phase's most frequent logN=10 shape of
-each (``bootstrap_kernels``), the kernels' summary line (launches on the
-main path and on the runtime and bootstrap paths, and a row
-per kernel at its logN=10 shape), and last the device line.  Latencies
+each (``bootstrap_kernels``), and
+
+  7. serve   the multi-tenant ``FHEServer`` at SERVE_KW (logN=16, L=14,
+             nh = 2^15, dnum = 8, k = 3; tenant secrets of Hamming
+             weight SERVE_HW): ``workload_request_programs``
+             of ``logreg(degree=15)`` and ``mlp``; three tenants enrolled
+             as benchmarks/bench_serving.py warms them (the host's exact
+             plaintext lifts timed apart); a Poisson trace of 24 requests
+             served continuously (batches of up to 4, 0.15 s wait, its
+             launches counted) and serially.  Gates: every request
+             completed in both loops, no new dispatch shape after the
+             warm-up, a plan-cache hit for every batch, every output
+             within its workload's tolerance of the banded reference
+             under its own tenant's key, the slots of a batch equal to
+             single runs, the first request of each program equal to its
+             CPU replica, the full chain's ModUp, fused IP and ModDown
+             shapes called, every kernel launched.  Then a chaos run
+             (logreg, 12 requests from two tenants at t = 0, transient
+             faults, evictions, corrupted slots and latency spikes all
+             firing): one outcome per request, a corrupted slot fails
+             alone, the injected counts equal the retries, failures and
+             re-keyed tenants, and every output decrypts.  Then
+             ``mlp_bootstrap`` served hop by hop at logN=8, L=19 (compute
+             -> bootstrap -> compute) equal to ``run_eager`` bit for bit
+             and within its tolerance.  Prints each loop's report, the
+             seconds per batch by width, launches per request, the busy
+             share and the HE2-SM simulator's replay of the batch log
+             (the model's latency, not the card's);
+
+then the kernels' summary line (launches on the main path and on the
+runtime, bootstrap and serve paths, and a row per kernel at its logN=10
+shape), and last the device line.  Latencies
 that the simulator (``repro_torch.sim``) returns model the paper's
 accelerators, not this card, and are named so.  Without a CUDA device,
 or without the repository beside it, it exits non-zero before printing
@@ -136,6 +165,38 @@ BOOT_KW = dict(logN=10, L=23, alpha=3, k=4, q_bits=29, scale_bits=29,
 BOOT_CTX = dict(seed=7, hamming_weight=8)
 BOOT_BTP = dict(n_groups=3, mod_K=5, cheb_degree=59)
 BOOT_MAX_ERR = 5e-3
+# The serve phase: the JAX package's workload parameters
+# (tests/test_workloads.py's wctx, benchmarks/bench_workloads.py) at the
+# paper's ring degree, nh = 2^15 slots; scale 2^29 on 29-bit primes, so
+# no rescale drifts the scale (PAPER_PARAMS pairs 2^28 with 30-bit
+# primes, and 9 rescales divide its scale by about 4^9)
+SERVE_KW = dict(logN=16, L=14, alpha=2, k=3, q_bits=29, scale_bits=29)
+SERVE_SEED = 3
+# Tenant secrets: sparse ternary of this Hamming weight.  Rescale and
+# ModDown floor the dropped limb (as the JAX package does), which leaves
+# a biased term whose largest slot grows about as N * sqrt(h): with dense
+# secrets at N = 2^16 logreg decrypts 0.16 off, over its 5e-3 tolerance
+SERVE_HW = 64
+SERVE_TENANTS = ["alice", "bob", "carol"]
+SERVE_RATE = 200.0
+SERVE_REQUESTS = 24
+SERVE_BATCH = 4
+SERVE_WAIT = 0.15
+# the programs whose first request is replayed on the CPU
+SERVE_REPLICA = ("logreg", "mlp")
+# the chaos run: logreg, two tenants, every arrival at t = 0, a fault
+# schedule under which every kind fires in the first four dispatches
+CHAOS_TENANTS = ["alice", "bob"]
+CHAOS_REQUESTS = 12
+CHAOS_PLAN = dict(seed=10, p_transient=0.25, p_evict=0.25, p_corrupt=0.25,
+                  p_spike=0.25, spike_s=0.05)
+# the bootstrap-inserted workload at the JAX package's shape for it
+# (tests/test_workloads.py's boot_ctx, input level 7)
+SERVE_BOOT_KW = dict(logN=8, L=19, alpha=4, k=4, q_bits=29, scale_bits=29,
+                     q0_bits=30)
+SERVE_BOOT_CTX = dict(seed=7, hamming_weight=8)
+SERVE_BOOT_BTP = dict(n_groups=2, mod_K=3, cheb_degree=27)
+SERVE_BOOT_LEVEL = 7
 
 
 def emit(obj) -> None:
@@ -1048,6 +1109,442 @@ def slice_rows(native, boot: dict) -> dict:
     return rows
 
 
+# ------------------------------------------------------------------ phase 7
+def _timed_lifts(ctx) -> dict:
+    """Wrap ``ctx._pmodup`` (the host's exact lift of a plaintext, on a
+    cache miss) to add up its seconds and count its misses."""
+    acc = {"s": 0.0, "lifts": 0}
+    lift = ctx._pmodup
+
+    def timed(pt, level):
+        if level in pt.pmodup_cache:
+            return pt.pmodup_cache[level]
+        t0 = time.perf_counter()
+        out = lift(pt, level)
+        acc["s"] += time.perf_counter() - t0
+        acc["lifts"] += 1
+        return out
+
+    ctx._pmodup = timed
+    return acc
+
+
+class _Rekeys:
+    """Host seconds spent making tenant keys (a ``KeyChain`` and its
+    evks) while active: what re-keying an evicted tenant costs."""
+
+    def __enter__(self):
+        from repro_torch.core.keys import KeyChain
+
+        self.cls, self.s, self.chains = KeyChain, 0.0, 0
+        self.orig = (KeyChain.__init__, KeyChain._gen_evk)
+        init, gen = self.orig
+
+        def timed_init(chain, *a, **k):
+            t0 = time.perf_counter()
+            init(chain, *a, **k)
+            self.s += time.perf_counter() - t0
+            self.chains += 1
+
+        def timed_gen(chain, *a, **k):
+            t0 = time.perf_counter()
+            out = gen(chain, *a, **k)
+            torch.cuda.synchronize()
+            self.s += time.perf_counter() - t0
+            return out
+
+        KeyChain.__init__, KeyChain._gen_evk = timed_init, timed_gen
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__init__, self.cls._gen_evk = self.orig
+        return False
+
+
+def _serve_loop(report, records) -> dict:
+    """The ``ServingReport`` numbers of one loop."""
+    widths = {}
+    for r in records:
+        if r.ok:
+            n, s = widths.get(f"{r.program_id}@{r.batch}", (0, 0.0))
+            widths[f"{r.program_id}@{r.batch}"] = (n + 1, s + r.duration_s)
+    return {"completed": report.completed, "failed": report.failed,
+            "shed": report.shed, "rejected": report.rejected,
+            "batches": report.batches,
+            "batch_occupancy": report.batch_occupancy,
+            "p50_latency_s": report.p50_latency_s,
+            "p99_latency_s": report.p99_latency_s,
+            "throughput_rps": report.throughput_ops, "span_s": report.span_s,
+            "plan_cache": report.plan_cache,
+            "s_per_batch": {k: {"batches": n, "mean_s": s / n}
+                            for k, (n, s) in sorted(widths.items())}}
+
+
+def _decrypt_errors(ctx, registry, outputs, sent, models) -> dict:
+    """Largest slot error of each program's outputs, each decrypted under
+    its own tenant's key, against the banded reference."""
+    errs = {}
+    for rid, (a, x, _) in enumerate(sent):
+        with registry.lease(a.tenant):
+            err = max_err(ctx, outputs[rid]["y"],
+                          models[a.program_id].reference(x))
+        errs[a.program_id] = max(errs.get(a.program_id, 0.0), err)
+    return errs
+
+
+def _gate_loop(name, rep, n, warm_hits, errs, models) -> None:
+    """Every request completed, a plan-cache hit for every batch (the
+    hits after ``warm_hits``, those of the warm-up), every output within
+    its workload's tolerance."""
+    if (rep.completed, rep.failed, rep.shed, rep.rejected) != (n, 0, 0, 0):
+        raise AssertionError(f"serve {name}: {rep.completed} of {n} "
+                             f"completed, {rep.failed} failed, {rep.shed} "
+                             f"shed, {rep.rejected} rejected")
+    if rep.plan_cache["hits"] - warm_hits != rep.batches:
+        raise AssertionError(f"serve {name}: {rep.plan_cache['hits']} plan "
+                             f"hits ({warm_hits} in the warm-up) for "
+                             f"{rep.batches} batches")
+    bad = {p: e for p, e in errs.items() if not e < models[p].tolerance}
+    if bad:
+        raise AssertionError(f"serve {name}: decryption errors {bad} above "
+                             f"the workloads' tolerances")
+
+
+def _inputs(ctx, models, seed: int, sent: list):
+    """``inputs_for`` of a served trace: a sample of the program's model,
+    encrypted under the lease the server holds; ``sent`` gets (arrival,
+    sample, ciphertext) in admission order (rid order)."""
+    rng = np.random.default_rng(seed)
+
+    def inputs_for(a):
+        x = models[a.program_id].sample(rng)
+        ct = ctx.encrypt(x)
+        sent.append((a, x, ct))
+        return {"x": ct}
+
+    return inputs_for
+
+
+def serve_cpu_replica(P, registry, programs, sent, outputs, pids) -> dict:
+    """The first request of each program in ``pids`` through the plain
+    versions on the CPU, under a copy of its tenant's keys: the output
+    must equal the card's residue for residue."""
+    from repro_torch import convert
+    from repro_torch.core.ckks import CKKSContext
+    from repro_torch.runtime import ProgramExecutor
+
+    out = {}
+    cpu = CKKSContext(P, seed=SERVE_SEED, hamming_weight=SERVE_HW,
+                      device="cpu")
+    ex = ProgramExecutor(cpu)
+    for pid in pids:
+        t0 = time.perf_counter()
+        rid = next(i for i, (a, _, _) in enumerate(sent)
+                   if a.program_id == pid)
+        a, _, ct = sent[rid]
+        keys = convert.keychain_to_numpy(registry.keychain(a.tenant))
+        cpu.keys = convert.keychain_from_numpy(cpu.pc, **keys)
+        got = ex.run(programs[pid], {"x": convert.ciphertext_from_numpy(
+            cpu.pc, **convert.ciphertext_to_numpy(ct))})["y"]
+        if not same_ct(outputs[rid]["y"], got):
+            raise AssertionError(f"serve: rid {rid} ({pid}) card and CPU "
+                                 f"residues differ")
+        out[pid] = {"rid": rid, "identical": True,
+                    "s": time.perf_counter() - t0}
+    return out
+
+
+def serve_chaos(ctx, registry, executor, programs, models) -> dict:
+    """logreg only, two tenants, every arrival at t = 0, under a seeded
+    fault schedule that fires every kind of fault (see the module
+    docstring)."""
+    from repro_torch.serve import Arrival, FaultInjector, FaultPlan, FHEServer
+
+    pid = "logreg"
+    injector = FaultInjector(FaultPlan(**CHAOS_PLAN))
+    server = FHEServer(ctx, max_batch=SERVE_BATCH, max_wait_s=0.0,
+                       registry=registry, faults=injector, max_retries=4)
+    server.executor = executor
+    server.register_program(pid, programs[pid])
+    with registry.lease(CHAOS_TENANTS[0]):
+        ct0 = ctx.encrypt(np.zeros(ctx.params.num_slots))
+    for w in (1, 2, 4):
+        server.warmup(CHAOS_TENANTS[0], pid, {"x": ct0}, width=w)
+    trace = [Arrival(0.0, CHAOS_TENANTS[i % 2], pid)
+             for i in range(CHAOS_REQUESTS)]
+    sent = []
+    evictions = registry.evictions
+    t0 = time.perf_counter()
+    with _Rekeys() as rekeys:
+        rep = server.run_trace(trace, _inputs(ctx, models, SEED + 22, sent))
+    wall = time.perf_counter() - t0
+    inj = dict(injector.injected)
+    evicted = registry.evictions - evictions
+    failed = sorted(r for r, o in server.outcomes.items() if o != "completed")
+    if not all(v >= 1 for v in inj.values()):
+        raise AssertionError(f"serve chaos: a fault kind never fired {inj}")
+    if (rep.accounted != rep.submitted or rep.submitted != CHAOS_REQUESTS
+            or len(server.outcomes) != CHAOS_REQUESTS):
+        raise AssertionError(f"serve chaos: {rep.accounted} of "
+                             f"{rep.submitted} requests accounted")
+    if (rep.failed != inj["corrupt"] or len(failed) != inj["corrupt"]
+            or rep.errors != ({"CorruptCiphertextError": inj["corrupt"]}
+                              if inj["corrupt"] else {})
+            or any(r in server.outputs for r in failed)):
+        raise AssertionError(f"serve chaos: {failed} failed, {rep.errors}, "
+                             f"for {inj['corrupt']} corrupted slots")
+    if rep.retries != inj["transient"] + inj["evict"]:
+        raise AssertionError(f"serve chaos: {rep.retries} retries for "
+                             f"{inj['transient']} transient faults and "
+                             f"{inj['evict']} evictions")
+    if not 1 <= evicted <= inj["evict"] or rekeys.chains != evicted:
+        raise AssertionError(f"serve chaos: {evicted} tenants evicted, "
+                             f"{rekeys.chains} re-keyed, for "
+                             f"{inj['evict']} injected evictions")
+    errs = 0.0
+    for rid, outs in server.outputs.items():
+        a, x, _ = sent[rid]
+        with registry.lease(a.tenant):
+            errs = max(errs, max_err(ctx, outs["y"], models[pid].reference(x)))
+    if not errs < models[pid].tolerance:
+        raise AssertionError(f"serve chaos: decryption error {errs}")
+    return {"plan": CHAOS_PLAN, "requests": CHAOS_REQUESTS,
+            "injected": inj, "completed": rep.completed,
+            "failed_rids": failed, "retries": rep.retries,
+            "quarantine_splits": rep.quarantine_splits,
+            "evicted": evicted, "rekeyed": rekeys.chains,
+            "rekey_host_s": rekeys.s, "max_err": errs, "s": wall,
+            "outcomes_accounted": True}
+
+
+def serve_bootstrap_chain(dev) -> dict:
+    """``mlp_bootstrap`` at the JAX package's shape for it, served hop by
+    hop (compute -> bootstrap -> compute) through ``FHEServer`` to one
+    tenant with a sparse secret."""
+    from repro_torch.core.bootstrap import Bootstrapper
+    from repro_torch.core.ckks import CKKSContext
+    from repro_torch.core.params import CKKSParams
+    from repro_torch.serve import (
+        Arrival, FHEServer, TenantRegistry, workload_request_programs,
+    )
+    from repro_torch.workloads import compile_workload, mlp_bootstrap
+
+    t0 = time.perf_counter()
+    P = CKKSParams(**SERVE_BOOT_KW)
+    ctx = CKKSContext(P, device=dev, **SERVE_BOOT_CTX)
+    btp = Bootstrapper(ctx, **SERVE_BOOT_BTP)
+    m = mlp_bootstrap(P.num_slots, bs=4)
+    wp = compile_workload(m, P, btp=btp, input_level=SERVE_BOOT_LEVEL)
+    programs, chains = workload_request_programs(
+        [m], P, btp=btp, input_level=SERVE_BOOT_LEVEL)
+    hops = chains[m.name]
+    kinds = [s.kind for s in wp.segments]
+    if kinds != ["compute", "bootstrap", "compute"] or len(hops) != 3:
+        raise AssertionError(f"serve bootstrap chain: segments {kinds}, "
+                             f"hops {hops}")
+    registry = TenantRegistry(ctx, hamming_weight=SERVE_BOOT_CTX[
+        "hamming_weight"])
+    server = FHEServer(ctx, max_batch=2, max_wait_s=0.0, registry=registry)
+    for pid, comp in programs.items():
+        server.register_program(pid, comp)
+    rng = np.random.default_rng(SEED + 24)
+    xs = [m.sample(rng) for _ in range(2)]
+    tenant = "dave"
+    with registry.lease(tenant):
+        cur = [ctx.encrypt(x, level=SERVE_BOOT_LEVEL) for x in xs]
+    first = list(cur)
+    for pid, in_tag, out_tag in hops:
+        base = server.submitted
+        it = iter(cur)
+        rep = server.run_trace([Arrival(0.0, tenant, pid)] * len(xs),
+                               lambda a: {in_tag: next(it)})
+        cur = [server.outputs[base + i][out_tag] for i in range(len(xs))]
+    if rep.completed != 3 * len(xs) or rep.failed or rep.shed:
+        raise AssertionError(f"serve bootstrap chain: {rep.completed} hops "
+                             f"completed")
+    errs = []
+    with registry.lease(tenant):
+        for x, ct, got in zip(xs, first, cur, strict=True):
+            if not same_ct(got, wp.run_eager(ctx, ct, btp=btp)):
+                raise AssertionError("serve bootstrap chain: served output "
+                                     "differs from run_eager")
+            errs.append(max_err(ctx, got, m.reference(x)))
+    if not max(errs) < m.tolerance:
+        raise AssertionError(f"serve bootstrap chain: decryption errors "
+                             f"{errs}, tolerance {m.tolerance}")
+    return {"params": kw_str(SERVE_BOOT_KW), "bootstrapper": SERVE_BOOT_BTP,
+            "input_level": SERVE_BOOT_LEVEL, "hops": [h[0] for h in hops],
+            "segments": kinds, "n_bootstraps": wp.n_bootstraps,
+            "served_equals_eager": True, "max_err": max(errs),
+            "tolerance": m.tolerance, "level_out": cur[0].level,
+            "batches": rep.batches, "s": time.perf_counter() - t0}
+
+
+def serve_shapes(calls: dict, P) -> dict:
+    """The served traffic's calls at the shapes of ``P``'s full chain:
+    ModUp of all dnum digits of level L, the fused IP over dnum digits of
+    L+1+k limbs, ModDown's BConv from the k special primes."""
+    l, l_ext, dnum = P.L + 1, P.L + 1 + P.k, len(P.digit_groups(P.L))
+    out = {"modup_all": 0, "fused_ip": 0, "bconv": 0}
+    for key, v in calls.items():
+        fn, _, dims = key.partition(" ")
+        dims = json.loads(dims)
+        if fn == "modup_all" and dims[-2:] == [l, P.N]:
+            out[fn] += v
+        elif fn == "fused_ip" and dims[-5:-2] == [dnum, l_ext, P.N]:
+            out[fn] += v
+        elif fn == "bconv" and dims[-2:] == [P.k, l]:
+            out[fn] += v
+    return {"dnum": dnum, "l_ext": l_ext, "k": P.k, "calls": out}
+
+
+def phase_serve(native, dev="cuda") -> dict:
+    """The multi-tenant FHE server at SERVE_KW (see the module
+    docstring)."""
+    from repro_torch.core.ckks import CKKSContext
+    from repro_torch.core.params import CKKSParams
+    from repro_torch.serve import (
+        FHEServer, TenantRegistry, poisson_trace, replay_on_hardware,
+        workload_request_programs,
+    )
+    from repro_torch.sim import HE2_SM
+    from repro_torch.workloads import logreg, mlp
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    P = CKKSParams(**SERVE_KW)
+    nh = P.num_slots
+    secs = {}
+    t0 = time.perf_counter()
+    models = {m.name: m for m in (logreg(nh, degree=15), mlp(nh))}
+    secs["models"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    programs, _ = workload_request_programs(list(models.values()), P)
+    secs["compile"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ctx = CKKSContext(P, seed=SERVE_SEED, hamming_weight=SERVE_HW,
+                      device=dev)
+    lifts = _timed_lifts(ctx)
+    registry = TenantRegistry(ctx, hamming_weight=SERVE_HW)
+    server = FHEServer(ctx, max_batch=SERVE_BATCH, max_wait_s=SERVE_WAIT,
+                       registry=registry)
+    for pid, comp in programs.items():
+        server.register_program(pid, comp)
+    # tenant enrollment, as benchmarks/bench_serving.py warms: the first
+    # tenant every width, the others the widest
+    zeros = {}
+    for ti, tenant in enumerate(SERVE_TENANTS):
+        with registry.lease(tenant):
+            zeros[tenant] = {"x": ctx.encrypt(np.zeros(nh))}
+        for pid in programs:
+            for w in ((1, 2, SERVE_BATCH) if ti == 0 else (SERVE_BATCH,)):
+                server.warmup(tenant, pid, zeros[tenant], width=w)
+    torch.cuda.synchronize()
+    secs["warmup"] = time.perf_counter() - t0
+    secs["lift"] = lifts["s"]
+    traces = dict(ctx.engine.trace_counts)
+    warm_hits = server.plan_cache.hits
+    trace = poisson_trace(SERVE_RATE, SERVE_REQUESTS, SERVE_TENANTS,
+                          list(programs), seed=SERVE_SEED)
+
+    sent = []
+    rep, run = counted(native, lambda: server.run_trace(
+        trace, _inputs(ctx, models, SEED + 20, sent)), "serve", P)
+    serial = FHEServer(ctx, max_batch=SERVE_BATCH, max_wait_s=SERVE_WAIT,
+                       registry=registry)
+    # the executor holds the programs' plaintexts, encoded and lifted in
+    # the warm-up: a second server on the same context reuses them
+    serial.executor = server.executor
+    for pid, comp in programs.items():
+        serial.register_program(pid, comp)
+        serial.warmup(SERVE_TENANTS[0], pid, zeros[SERVE_TENANTS[0]],
+                      width=1)
+    sent_serial = []
+    t0 = time.perf_counter()
+    rep_serial = serial.run_serial(trace, _inputs(ctx, models, SEED + 20,
+                                                  sent_serial))
+    serial_wall = time.perf_counter() - t0
+    retraces = sum(ctx.engine.trace_counts.values()) - sum(traces.values())
+    if retraces:
+        raise AssertionError(f"serve: {retraces} new dispatch shapes after "
+                             f"warm-up")
+    errs = {"continuous": _decrypt_errors(ctx, registry, server.outputs,
+                                          sent, models),
+            "serial": _decrypt_errors(ctx, registry, serial.outputs,
+                                      sent_serial, models)}
+    _gate_loop("continuous", rep, SERVE_REQUESTS, warm_hits,
+               errs["continuous"], models)
+    _gate_loop("serial", rep_serial, SERVE_REQUESTS, 0, errs["serial"],
+               models)
+    shapes = serve_shapes(run["calls"], P)
+    if not all(shapes["calls"].values()):
+        raise AssertionError(f"serve: a kernel was not called at the full "
+                             f"chain's shapes {shapes}")
+
+    # slot j of a batched dispatch equals the same request run alone
+    slots = 0
+    for pid in programs:
+        rec = next(r for r in server.records
+                   if r.program_id == pid and r.ok and r.n_real > 1)
+        with registry.lease(rec.tenant):
+            for rid in rec.rids:
+                alone = server.executor.run(programs[pid],
+                                            {"x": sent[rid][2]})["y"]
+                if not same_ct(alone, server.outputs[rid]["y"]):
+                    raise AssertionError(f"serve: rid {rid} of a batch of "
+                                         f"{rec.batch} differs from its "
+                                         f"single run")
+                slots += 1
+    # the busy share of one full batch of each program
+    prof = {}
+    for pid in programs:
+        rec = next(r for r in server.records if r.program_id == pid)
+        cts = [sent[r][2] for r in rec.rids]
+        cts += [cts[-1]] * (SERVE_BATCH - len(cts))
+        with registry.lease(rec.tenant):
+            prof[pid] = busy_profile(lambda: server.executor.run_batched(
+                programs[pid], {"x": cts}))
+    sim = replay_on_hardware(server.records, programs, HE2_SM)
+
+    t0 = time.perf_counter()
+    replica = serve_cpu_replica(P, registry, programs, sent, server.outputs,
+                                SERVE_REPLICA)
+    secs["cpu_replica"] = time.perf_counter() - t0
+    chaos = serve_chaos(ctx, registry, server.executor, programs, models)
+    boot = serve_bootstrap_chain(dev)
+    loops = {"continuous": _serve_loop(rep, server.records),
+             "serial": _serve_loop(rep_serial, serial.records)}
+    loops["serial"]["wall_s"] = serial_wall
+    loops["continuous"]["wall_s"] = run["s"]
+    res = {"phase": "serve", "params": kw_str(SERVE_KW),
+           "slots": nh, "dnum": shapes["dnum"],
+           "workloads": {p: {"tolerance": m.tolerance,
+                             "summary": programs[p].summary(),
+                             "steps": len(programs[p].steps)}
+                         for p, m in models.items()},
+           "trace": {"rate_rps": SERVE_RATE, "requests": SERVE_REQUESTS,
+                     "tenants": SERVE_TENANTS, "seed": SERVE_SEED,
+                     "max_batch": SERVE_BATCH, "max_wait_s": SERVE_WAIT},
+           "setup_s": secs, "lifts": lifts["lifts"],
+           "loops": loops,
+           "throughput_ratio": (loops["continuous"]["throughput_rps"]
+                                / loops["serial"]["throughput_rps"]),
+           "max_err": errs, "retraces_after_warmup": retraces,
+           "batched_slots_equal_single": slots, "cpu_replica": replica,
+           "shapes": shapes, "run": run,
+           "launches_per_request": {k: v / SERVE_REQUESTS
+                                    for k, v in run["launches"].items()},
+           "profile": prof,
+           "simulator_he2_sm": {k: sim[k] for k in (
+               "pipelined_s", "serial_s", "speedup", "throughput_ops",
+               "comm_stall_frac")},
+           "chaos": chaos, "bootstrap_chain": boot,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1063,6 +1560,7 @@ def main() -> int:
     phase_parity()
     boot = phase_bootstrap(native)
     boot_rows = slice_rows(native, boot)
+    served = phase_serve(native)
     ntt_src = ("src/repro_torch/csrc/ntt.cu", "src/repro/kernels/ntt/ntt.py:70")
     calls = main_res["calls"]
     bconv_main = bconv_calls(calls, PAPER_PARAMS.k)
@@ -1088,6 +1586,7 @@ def main() -> int:
                                   logn=PAPER_PARAMS.logN)
                              for r in rt["runs"].values()],
         "bootstrap_launches": list(boot["runs"].values()),
+        "serve_launches": [served["run"]],
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "cuda_launches", "cluster")

@@ -1,17 +1,24 @@
 """Carry CKKS state between the JAX package and the port, as numpy arrays.
 
-Functions here take and return numpy arrays and plain numbers, never
-objects of the JAX package, so the port still imports nothing of it.
+Functions here take and return numpy arrays and plain numbers
+(``serving_to_dicts`` takes a dataclass of either package's serving
+layer); none imports the JAX package, so the port still imports nothing
+of it.
 Residues cross as uint64 (the JAX package's dtype) and live in the port
 as int64.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
 from repro_torch.core.ckks import Ciphertext, Plaintext
 from repro_torch.core.keys import EvalKey, KeyChain
 from repro_torch.core.poly import PolyContext
+from repro_torch.workloads.models import (
+    Activation, Dense, Workload, scaled_tanh, sigmoid4,
+)
 
 
 def _tensor(pc: PolyContext, arr) -> "object":
@@ -88,3 +95,44 @@ def exec_result_to_numpy(result) -> dict:
     return {tag: ([ciphertext_to_numpy(c) for c in ct]
                   if isinstance(ct, list) else ciphertext_to_numpy(ct))
             for tag, ct in result.outputs.items()}
+
+
+def activation_from_numpy(name: str, degree: int, coeffs) -> Activation:
+    """The port's activation of that name (``sigmoid4`` or ``tanh*s``)
+    with the given Chebyshev coefficients."""
+    if name == "sigmoid4":
+        fn = sigmoid4(degree).fn
+    elif name.startswith("tanh*"):
+        fn = scaled_tanh(float(name[len("tanh*"):]), degree).fn
+    else:
+        raise ValueError(f"unknown activation {name!r}")
+    return Activation(name, fn, int(degree),
+                      np.asarray(coeffs, dtype=np.float64))
+
+
+def dense_from_numpy(name: str, diags: dict, bias=None, act=None,
+                     bs: int = 4) -> Dense:
+    """A port ``Dense`` from its diagonals (offset -> array), bias and
+    activation (``None`` or a dict of ``name``, ``degree``, ``coeffs``)."""
+    return Dense(name, {int(d): np.asarray(v, dtype=np.float64)
+                        for d, v in diags.items()},
+                 bias=None if bias is None else np.asarray(bias),
+                 act=None if act is None else activation_from_numpy(**act),
+                 bs=int(bs))
+
+
+def workload_from_numpy(name: str, layers: list[dict],
+                        input_mag: float = 1.0,
+                        tolerance: float = 5e-3) -> Workload:
+    """A port ``Workload`` from ``dense_from_numpy`` keyword dicts."""
+    return Workload(name, [dense_from_numpy(**layer) for layer in layers],
+                    input_mag=float(input_mag), tolerance=float(tolerance))
+
+
+def serving_to_dicts(obj):
+    """A ``ServingReport`` as a dict of its fields, or a ``BatchRecord``
+    log as a list of them, for a field-by-field comparison of two
+    servers."""
+    if isinstance(obj, (list, tuple)):
+        return [dataclasses.asdict(r) for r in obj]
+    return dataclasses.asdict(obj)

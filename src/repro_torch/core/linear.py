@@ -20,11 +20,15 @@ from repro_torch.core.ckks import CKKSContext, Ciphertext
 
 
 def matrix_diagonals(A: np.ndarray, tol: float = 1e-12) -> dict[int, np.ndarray]:
-    """Generalized diagonals diag_d[i] = A[i, (i+d) mod nh], nonzero only."""
+    """Generalized diagonals diag_d[i] = A[i, (i+d) mod nh], nonzero only.
+
+    Each diagonal is one gather (exact, so the values equal the JAX
+    package's element loop)."""
     nh = A.shape[0]
+    idx = np.arange(nh)
     out = {}
     for d in range(nh):
-        diag = np.array([A[i, (i + d) % nh] for i in range(nh)])
+        diag = A[idx, (idx + d) % nh]
         if np.abs(diag).max() > tol:
             out[d] = diag
     return out

@@ -1,10 +1,10 @@
 """Typed errors the port raises, mirroring the JAX package's taxonomy.
 
 The ciphertext-data branch serves the CKKS scheme, the keyswitch engine
-and the compiled runtime's ``validate=`` checks; of the serving branch
-only ``InvalidRequestError`` is needed yet (the executor's request
-checks).  Every error carries a keyword ``context`` dict and an
-optional ``hint``, both rendered into ``str(err)``.
+and the compiled runtime's ``validate=`` checks; the serving branch,
+``ConfigError`` and the retry policy serve ``repro_torch.serve``.  Every
+error carries a keyword ``context`` dict and an optional ``hint``, both
+rendered into ``str(err)``.
 """
 from __future__ import annotations
 
@@ -54,5 +54,40 @@ class ServingError(ReproError):
     """The serving environment failed; the request data may be fine."""
 
 
+class KeyUnavailableError(ServingError):
+    """Tenant key material is not resident (evicted mid-flight)."""
+
+
+class PlanCacheMissError(ServingError):
+    """Strict admission refused a cold (signature, width) dispatch."""
+
+
+class TransientEngineError(ServingError):
+    """Transient engine fault — retry with backoff is expected to work."""
+
+
+class RequestTimeout(ServingError):
+    """The request's virtual-clock deadline expired before completion."""
+
+
+class CircuitOpenError(ServingError):
+    """Per-tenant circuit breaker is open; request shed without work."""
+
+
 class InvalidRequestError(ServingError):
     """Malformed request: unknown program id, missing input tags, ..."""
+
+
+class ConfigError(ReproError):
+    """Invalid operator-supplied configuration value."""
+
+
+# The single policy point for the server's retry loop: key eviction is
+# recoverable because per-tenant seeds are stable (a re-lease regenerates
+# the keys bit-identically); transient engine faults recover by design.
+RETRYABLE_ERRORS = (TransientEngineError, KeyUnavailableError)
+
+
+def is_retryable(err: BaseException) -> bool:
+    """Should the server retry the dispatch that raised ``err``?"""
+    return isinstance(err, RETRYABLE_ERRORS)

@@ -315,3 +315,35 @@ def test_cuda_bootstrap_equals_cpu(cuda):
         assert (ct.level, ct.scale) == (want.level, want.scale)
         assert torch.equal(ct.c0.cpu(), want.c0)
         assert torch.equal(ct.c1.cpu(), want.c1)
+
+
+@pytest.mark.cuda
+def test_cuda_serving_equals_cpu(cuda):
+    """A four-request trace of logreg (degree 7 at logN=10, L=8) from two
+    tenants, served by ``FHEServer`` (batches of 2) on the card and on
+    the CPU: the same outcomes and batch log, and the same residues."""
+    from repro_torch.core.ckks import CKKSContext
+    from repro_torch.serve import Arrival, FHEServer, workload_request_programs
+    from repro_torch.workloads import logreg
+
+    p = CKKSParams(logN=10, L=8, alpha=2, k=3, q_bits=29, scale_bits=29)
+    m = logreg(p.num_slots, degree=7, bs=4)
+    programs, _ = workload_request_programs([m], p)
+    trace = [Arrival(0.0, t, m.name) for t in ("alice", "bob") * 2]
+    runs = []
+    for dev in (cuda, "cpu"):
+        ctx = CKKSContext(p, seed=3, device=dev)
+        server = FHEServer(ctx, max_batch=2, max_wait_s=0.0)
+        server.register_program(m.name, programs[m.name])
+        rng = np.random.default_rng(4)
+        rep = server.run_trace(
+            trace, lambda a: {"x": ctx.encrypt(m.sample(rng))})
+        assert rep.completed == 4 and rep.failed == 0
+        runs.append((server.outputs, [(r.rids, r.batch, r.ok)
+                                      for r in server.records]))
+    (card, log_card), (cpu, log_cpu) = runs
+    assert log_card == log_cpu
+    for rid in range(4):
+        a, b = card[rid]["y"], cpu[rid]["y"]
+        assert (a.level, a.scale) == (b.level, b.scale)
+        assert torch.equal(a.c0.cpu(), b.c0) and torch.equal(a.c1.cpu(), b.c1)
