@@ -1,9 +1,11 @@
-"""Drive the PyTorch/CUDA port's CKKS keyswitch path once on an H100.
+"""Drive the PyTorch/CUDA port's CKKS keyswitch path, its distributed
+keyswitch and its LM serving path once on an H100.
 
     python3 chip_smoke.py
 
 Phases, each printing one JSON line (any mismatch raises, so the script
-exits non-zero):
+exits non-zero); phases 9 and 8 run right after the build, in a fresh
+process, the others in the order below:
 
   1. build   compile the four CUDA kernels from ``src/repro_torch/csrc``
              (one nvcc per source, in parallel); print the card's name
@@ -96,9 +98,35 @@ each (``bootstrap_kernels``), and
              share and the HE2-SM simulator's replay of the batch log
              (the model's latency, not the card's);
 
+  8. distributed
+             the distributed keyswitch (``core/distributed``) on an NCCL
+             group of one rank (rendezvous through a file in a temporary
+             directory): IRF and EVF at the paper's shape (dnum = 3,
+             l_ext = 48, N = 2^16), their local inner product through the
+             fused-IP kernel at R = 1 without a plaintext, counted (one
+             launch each, no other kernel) and equal to the plain version
+             residue for residue; the kernel's row at that shape; the
+             bytes each all-to-all sent off the rank (none at P = 1) and
+             the analytic IRF / EVF bytes for P = 2, 4, 8.  One card, so
+             no time across cards;
+  9. lm_serve
+             phi3-medium-14b at full width (40 layers, d = 5120, bf16,
+             random weights from a seeded generator on the card) served
+             by ``launch/serve.generate`` (batch 4, prompt 16, 32 greedy
+             tokens; a warm-up run first).  Gates: finite logits;
+             teacher-forced decode of the prompts equal to the full
+             forward within the JAX package's own bound (0.15) in bf16
+             at that bound's depth (2 layers) and in a float32 copy at
+             full depth (the bf16 full-depth difference is printed); the
+             float32 copy cut to two layers equal on the card and on the
+             CPU within 1e-3.  Prints weight GB, peak memory, prefill
+             seconds, ms per decode step, tokens/s and the per-step
+             bytes bound (every weight and the cache read once);
+
 then the kernels' summary line (launches on the main path and on the
-runtime, bootstrap and serve paths, and a row per kernel at its logN=10
-shape), and last the device line.  Latencies
+runtime, bootstrap, serve and distributed paths, a row per kernel at its
+logN=10 shape, and the fused IP at the distributed path's shape), and
+last the device line.  Latencies
 that the simulator (``repro_torch.sim``) returns model the paper's
 accelerators, not this card, and are named so.  Without a CUDA device,
 or without the repository beside it, it exits non-zero before printing
@@ -107,6 +135,7 @@ any result.
 from __future__ import annotations
 
 import ctypes
+import gc
 import json
 import re
 import subprocess
@@ -1545,6 +1574,301 @@ def phase_serve(native, dev="cuda") -> dict:
     return res
 
 
+# ------------------------------------------------------------------ phase 8
+# The distributed keyswitch at the paper's shape: dnum = 3 digits of
+# l_ext = 48 limbs (level 35 and the 12 special primes) at N = 2^16
+DIST_LEVEL = 35
+DIST_P = (2, 4, 8)
+
+
+def phase_distributed(native) -> dict:
+    """IRF and EVF on an NCCL group of one rank (one card), their local
+    inner product through the fused-IP kernel at R = 1 without a
+    plaintext; both held residue for residue against the plain version
+    on the card.  Prints the kernel's row at that shape, the bytes each
+    all-to-all sent off the rank (none at P = 1) and the analytic IRF /
+    EVF bytes for P = 2, 4, 8.  No time across cards is claimed: there is
+    one card."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed
+    from repro_torch.core.params import PAPER_PARAMS as P
+    from repro_torch.core.poly import PolyContext
+    from repro_torch.kernels.fused_ip.ops import fused_ip_plain
+    from repro_torch.kernels.timing import cuda_ms
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.cuda.set_device(0)
+    ext = P.q_chain(DIST_LEVEL) + P.p_primes
+    dnum, l_ext, N = len(P.digit_groups(DIST_LEVEL)), len(ext), P.N
+    rng = np.random.default_rng(SEED + 8)
+    digits = residues(rng, ext, (dnum, l_ext, N), dev)
+    evk = residues(rng, ext, (dnum, 2, l_ext, N), dev)
+    q = torch.tensor(ext, dtype=torch.int64, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rdv",
+                                world_size=1, rank=0)
+        try:
+            fns = {"IRF": distributed.ip_irf()[0],
+                   "EVF": distributed.ip_evf()[0]}
+            # the counted run: every launch of the path's IRF and EVF
+            native.reset_counts()
+            outs = {kind: fn(digits, evk, ext) for kind, fn in fns.items()}
+            torch.cuda.synchronize()
+            launches = dict(native.LAUNCHES)
+            cuda_launches = native.launch_log("fused_ip")[0]
+            calls = {f"{f} {list(shape)}": v
+                     for (f, shape), v in sorted(native.CALLS.items())}
+            if launches["fused_ip"] != len(fns) or cuda_launches != len(fns):
+                raise AssertionError(f"distributed: {launches}, "
+                                     f"{cuda_launches} CUDA launches")
+            if any(v for k, v in launches.items() if k != "fused_ip"):
+                raise AssertionError(f"distributed: {launches}")
+            want = fused_ip_plain(digits[None], evk[None], None, q)
+            errs = {kind: exact(f"distributed {kind}", torch.stack(out),
+                                want, [dnum, l_ext, N])
+                    for kind, out in outs.items()}
+            counted = {kind: distributed.measure_collectives(
+                fn, digits, evk, ext) for kind, fn in fns.items()}
+            ms = {kind: cuda_ms(lambda fn=fn: fn(digits, evk, ext))
+                  for kind, fn in fns.items()}
+        finally:
+            dist.destroy_process_group()
+    pc = PolyContext(P, device=dev)
+    row = kernel_at(native, P, pc, rng, "fused_ip",
+                    [1, dnum, l_ext, N, 1, 0])
+    analytic = {kind: {p: distributed.comm_bytes_per_device(
+                    kind, dnum, l_ext, N, p) for p in DIST_P}
+                for kind in distributed.KINDS}
+    res = {"phase": "distributed", "world_size": 1, "backend": "nccl",
+           "shape": {"dnum": dnum, "l_ext": l_ext, "N": N},
+           "launches": launches, "cuda_launches": cuda_launches,
+           "calls": calls, "max_abs_err": errs,
+           "ms_at_p1": ms, "counted_bytes_p1": counted,
+           "analytic_bytes": analytic, "kernel": row,
+           "seconds": time.perf_counter() - t_phase}
+    for p in DIST_P:
+        if not analytic["IRF"][p] < analytic["EVF"][p]:
+            raise AssertionError(f"IRF moves no fewer bytes at P = {p}")
+    emit(res)
+    return res
+
+
+# ------------------------------------------------------------------ phase 9
+# phi3-medium-14b at full width, served with launch/serve.py's defaults
+LM_ARCH = "phi3_medium_14b"
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 16, 32
+# The JAX package's own decode-vs-prefill bound, rtol = atol = 0.15, set
+# on its 2-layer smoke model (tests/test_models_smoke.py:77-95).  It is
+# held in bf16 at that depth (LM_REF_LAYERS, full width) and in float32
+# at full depth.  In bf16 the difference is rounding noise that grows
+# with depth (max 0.0625 at 2 layers, 0.189 at 40 on logits of std 1.43,
+# against 3e-5 in float32 at every depth, on an H100 80GB HBM3 at 700 W),
+# so the full-depth bf16 figures are printed, not gated.
+LM_DECODE_TOL = 0.15
+LM_REF_LAYERS = 2
+# float32 card against CPU over two full-width layers: summation order
+# only (TF32 is off), about 1e-5 of logits of magnitude ~1
+LM_F32_TOL = 1e-3
+LM_F32_LAYERS = 2
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _tree_sum(fn, tree) -> int:
+    total = []
+    _tree_map(lambda t: total.append(fn(t)), tree)
+    return sum(total)
+
+
+def _tree_bytes(tree) -> int:
+    return _tree_sum(lambda t: t.numel() * t.element_size(), tree)
+
+
+def _first_layers(params, n: int) -> dict:
+    """The model cut to its first ``n`` layers (views of the stacked
+    blocks; the embeddings and final norm shared)."""
+    return dict(params, blocks=_tree_map(lambda t: t[:n], params["blocks"]))
+
+
+def _decode_vs_prefill(params, cfg, toks) -> dict:
+    """Teacher-forced decode of ``toks`` against the full forward: the
+    largest difference, the largest excess over the JAX package's bound
+    (|d| - rtol |full|, to compare with its atol), the mean difference,
+    the logits' scale and the share of positions with the same argmax;
+    raises on a non-finite logit."""
+    from repro_torch.models.model import forward, init_cache
+
+    B, S = toks.shape
+    with torch.no_grad():
+        full, _ = forward(params, toks, cfg)
+        cache = init_cache(cfg, B, S, device=toks.device)
+        steps = []
+        for t in range(S):
+            lg, cache = forward(params, toks[:, t:t + 1], cfg, cache=cache)
+            steps.append(lg[:, 0])
+        dec = torch.stack(steps, 1)
+    if not (torch.isfinite(full).all() and torch.isfinite(dec).all()):
+        raise AssertionError(f"lm_serve: non-finite logits ({cfg.dtype}, "
+                             f"{cfg.n_layers} layers)")
+    d = (dec - full).abs()
+    return {"max_abs": float(d.max()),
+            "excess": float((d - LM_DECODE_TOL * full.abs()).max()),
+            "mean_abs": float(d.mean()), "logit_std": float(full.std()),
+            "logit_max_abs": float(full.abs().max()),
+            "argmax_agree": float((dec.argmax(-1) == full.argmax(-1))
+                                  .float().mean())}
+
+
+def _gate_decode(name: str, r: dict) -> None:
+    if r["excess"] > LM_DECODE_TOL:
+        raise AssertionError(f"lm_serve: {name} decode != prefill: max abs "
+                             f"diff {r['max_abs']} over rtol = atol = "
+                             f"{LM_DECODE_TOL}")
+
+
+def phase_lm_serve(smi: str) -> dict:
+    """phi3-medium-14b at full width (bf16, random weights from a seeded
+    generator on the card) served through ``launch/serve.generate``:
+    batch 4, prompt 16, 32 greedy tokens, twice (the first warms up).
+    Then, on the prompts, teacher-forced decode against the full forward:
+    every logit finite; within the JAX package's bound (LM_DECODE_TOL) in
+    bf16 at its depth (LM_REF_LAYERS) and in a float32 copy at full
+    depth; the bf16 full-depth figures printed.  Last, the float32 copy
+    cut to LM_F32_LAYERS layers gives the card's logits on the CPU within
+    LM_F32_TOL.  Prints weight GB, peak memory, prefill seconds, ms per
+    decode step, tokens/s, the per-step bytes bound, and one decode step
+    captured into a CUDA graph: its kernels and its replay's device
+    time, the step without host dispatch."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.timing import cuda_ms
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import forward, init_cache, init_params
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    heap_objects = len(gc.get_objects())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = _tree_bytes(params)
+    n_params = _tree_sum(lambda t: t.numel(), params)
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    runs = []
+    for _ in range(2):
+        times = {}
+        t0 = time.perf_counter()
+        out = generate(cfg, params, prompts, LM_GEN, times)
+        runs.append(dict(times, total_s=time.perf_counter() - t0))
+    if out.shape != (LM_BATCH, LM_PROMPT + LM_GEN) or not np.array_equal(
+            out[:, :LM_PROMPT], prompts):
+        raise AssertionError(f"lm_serve: bad output {out.shape}")
+    if not ((out >= 0) & (out < cfg.vocab)).all():
+        raise AssertionError("lm_serve: token out of the vocabulary")
+    warm = runs[-1]
+    step_ms = warm["decode_s"] / LM_GEN * 1e3
+    # a decode step reads every weight once, and the cache
+    cache_bytes = _tree_bytes(init_cache(cfg, LM_BATCH, LM_PROMPT + LM_GEN,
+                                         device=dev)["slots"])
+    bound_ms = (weight_bytes + cache_bytes) / PEAK_BYTES * 1e3
+
+    # one decode step captured into a CUDA graph: its kernels, and its
+    # device time from replays (no host dispatch), against the eager step
+    cache = init_cache(cfg, LM_BATCH, LM_PROMPT + LM_GEN, device=dev)
+    cache["idx"] = LM_PROMPT
+    cur = torch.as_tensor(out[:, LM_PROMPT:LM_PROMPT + 1], dtype=torch.int64,
+                          device=dev)
+
+    def step():
+        with torch.no_grad():
+            return forward(params, cur, cfg, cache=cache)[0]
+
+    step_kernels, _ = graph_kernels(step)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        step()
+    graph_ms = cuda_ms(g.replay, reps=5, batches=3, hide_host=False)
+    del g, cache
+
+    toks = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
+    checks = {"bf16_full_depth": _decode_vs_prefill(params, cfg, toks),
+              f"bf16_{LM_REF_LAYERS}_layers": _decode_vs_prefill(
+                  _first_layers(params, LM_REF_LAYERS),
+                  dataclasses.replace(cfg, n_layers=LM_REF_LAYERS), toks)}
+    _gate_decode("bf16", checks[f"bf16_{LM_REF_LAYERS}_layers"])
+    del params
+    torch.cuda.empty_cache()
+
+    # the float32 copy at full depth (56.6 GB: the bf16 model is freed)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = init_params(cfg32, torch.Generator(device=dev).manual_seed(SEED),
+                      dev)
+    checks["f32_full_depth"] = _decode_vs_prefill(p32, cfg32, toks)
+    _gate_decode("float32", checks["f32_full_depth"])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # the float32 copy cut to LM_F32_LAYERS layers, on the card and the CPU
+    cut = dataclasses.replace(cfg32, n_layers=LM_F32_LAYERS)
+    p_card = _first_layers(p32, LM_F32_LAYERS)
+    p_cpu = _tree_map(lambda t: t.cpu(), p_card)
+    toks32 = toks[:2, :8]
+    with torch.no_grad():
+        card, _ = forward(p_card, toks32, cut)
+        t0 = time.perf_counter()
+        cpu, _ = forward(p_cpu, toks32.cpu(), cut)
+        cpu_s = time.perf_counter() - t0
+    f32_err = float((card.cpu() - cpu).abs().max())
+    if not (f32_err <= LM_F32_TOL and torch.isfinite(cpu).all()):
+        raise AssertionError(f"lm_serve: float32 card != CPU, {f32_err}")
+    del p32, p_card, p_cpu
+    torch.cuda.empty_cache()
+
+    res = {"phase": "lm_serve", "arch": LM_ARCH, "card": smi,
+           "config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                      "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                      "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+                      "dtype": cfg.dtype},
+           "n_params": n_params, "weight_gb": weight_bytes / 1e9,
+           "init_s": init_s, "peak_mem_gb": peak_gb,
+           "heap_objects": heap_objects,
+           "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
+           "runs": runs, "prefill_s": warm["prefill_s"],
+           "decode_ms_per_step": step_ms,
+           "prefill_ms_per_step": warm["prefill_s"] / LM_PROMPT * 1e3,
+           "decode_tokens_per_s": LM_BATCH * LM_GEN / warm["decode_s"],
+           "tokens_per_s": LM_BATCH * LM_GEN / warm["total_s"],
+           "bound_ms_per_step": bound_ms, "bound_by": "bytes",
+           "bound_share": bound_ms / step_ms,
+           "step_kernels": step_kernels,
+           "step_graph_device_ms": graph_ms,
+           "graph_bound_share": bound_ms / graph_ms,
+           "decode_vs_prefill": checks, "decode_tol": LM_DECODE_TOL,
+           "f32_card_vs_cpu_max_abs": f32_err, "f32_layers": LM_F32_LAYERS,
+           "f32_cpu_forward_s": cpu_s,
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1554,6 +1878,10 @@ def main() -> int:
 
     t_start = time.perf_counter()
     smi = phase_build(native)
+    # the LM path first, in a fresh process: its decode step is bound by
+    # Python dispatch, which the FHE phases' heap would slow down
+    phase_lm_serve(smi)
+    dist_res = phase_distributed(native)
     kern = phase_kernels(PAPER_PARAMS, native)
     main_res = phase_main(PAPER_PARAMS, native)
     rt = phase_runtime(PAPER_PARAMS, native)
@@ -1588,6 +1916,7 @@ def main() -> int:
         "bootstrap_launches": list(boot["runs"].values()),
         "serve_launches": [served["run"]],
     }
+    dist_launches = dist_res["launches"]["fused_ip"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "cuda_launches", "cluster")
     rows = []
@@ -1597,7 +1926,21 @@ def main() -> int:
                      "replaces": rep, "launches": launches,
                      **{p: path_launches(runs, name)
                         for p, runs in paths.items()},
+                     "distributed_launches": (dist_launches
+                                              if name == "fused_ip" else 0),
                      **{k: r[k] for k in keys}})
+    # the distributed path's own shape, R = 1 without a plaintext:
+    # ``launches`` counts that path's calls; the other paths' columns
+    # count their calls at this shape
+    src, rep, _ = sources["fused_ip"]
+    r = dist_res["kernel"]
+    key = f"fused_ip {r['shape']}"
+    rows.append({"name": "fused_ip_r1", "route": "cuda", "source": src,
+                 "replaces": rep, "launches": dist_launches,
+                 **{p: sum(run["calls"].get(key, 0) for run in runs)
+                    for p, runs in paths.items()},
+                 "distributed_launches": dist_res["calls"].get(key, 0),
+                 "shape": r["shape"], **{k: r[k] for k in keys}})
     # the bootstrap path's own shapes: ``launches`` counts the calls at
     # the row's shape (and ring degree) in that path's counted runs
     for name, (r, _, key) in boot_rows.items():
@@ -1608,7 +1951,8 @@ def main() -> int:
         rows.append({"name": f"{name}_logn10", "route": "cuda",
                      "source": src, "replaces": rep,
                      "launches": at_shape["bootstrap_launches"],
-                     **at_shape, "shape": r["shape"],
+                     **at_shape, "distributed_launches": 0,
+                     "shape": r["shape"],
                      **{k: r[k] for k in keys}})
     emit({"kernels": rows})
     print(f"card: {smi}; total {time.perf_counter() - t_start:.1f} s",

@@ -1,0 +1,13 @@
+"""phi3-medium-14b [dense]: 40L d=5120 40H (kv=10) ff=17920 v=100352.
+RoPE + SwiGLU + GQA.  [arXiv:2404.14219; unverified]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi3-medium-14b", family="dense", n_layers=40, d_model=5120,
+    n_heads=40, n_kv_heads=10, d_ff=17920, vocab=100352,
+)
+
+REDUCED = ModelConfig(
+    name="phi3-medium-14b-smoke", family="dense", n_layers=2, d_model=64,
+    n_heads=4, n_kv_heads=2, d_ff=160, vocab=512,
+)

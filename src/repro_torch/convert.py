@@ -5,17 +5,22 @@ Functions here take and return numpy arrays and plain numbers
 layer); none imports the JAX package, so the port still imports nothing
 of it.
 Residues cross as uint64 (the JAX package's dtype) and live in the port
-as int64.
+as int64.  LM parameters and decode caches cross as nested dicts and
+lists of numpy arrays (the JAX package's pytrees); bf16 arrays arrive
+with numpy's ``bfloat16`` extension dtype and are reinterpreted bit for
+bit, and leave as float32 (exact).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.ckks import Ciphertext, Plaintext
 from repro_torch.core.keys import EvalKey, KeyChain
-from repro_torch.core.poly import PolyContext
+from repro_torch.core.poly import PolyContext, resolve_device
+from repro_torch.models.model import dtype_of, layer_pattern
 from repro_torch.workloads.models import (
     Activation, Dense, Workload, scaled_tanh, sigmoid4,
 )
@@ -136,3 +141,77 @@ def serving_to_dicts(obj):
     if isinstance(obj, (list, tuple)):
         return [dataclasses.asdict(r) for r in obj]
     return dataclasses.asdict(obj)
+
+
+# ------------------------------ LM zoo ------------------------------------
+
+def _leaf_from_numpy(a, device) -> torch.Tensor:
+    a = np.array(a, order="C")   # a writable copy
+    if a.dtype.name == "bfloat16":
+        # numpy's bfloat16 extension type: same bits as torch.bfloat16
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
+            .to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def lm_params_from_numpy(cfg, tree, device="cuda") -> dict:
+    """The JAX package's ``init_params(cfg)`` pytree, as numpy arrays ->
+    the port's parameters on ``device``, every leaf in ``cfg``'s dtype.
+
+    Both packages keep the same pytree: ``blocks[s][...][r]`` is layer
+    ``r * len(pattern) + s``."""
+    device = resolve_device(device)
+    pattern, reps = layer_pattern(cfg)
+    if len(tree["blocks"]) != len(pattern):
+        raise ValueError(f"{cfg.name}: {len(tree['blocks'])} block slots, "
+                         f"the pattern has {len(pattern)}")
+    dtype = dtype_of(cfg)
+    out = _tree_map(lambda a: _leaf_from_numpy(a, device).to(dtype), tree)
+    for slot in out["blocks"]:
+        _tree_map(lambda t: _check_reps(t, reps, cfg), slot)
+    return out
+
+
+def _check_reps(t, reps: int, cfg) -> None:
+    if t.shape[0] != reps:
+        raise ValueError(f"{cfg.name}: a block leaf of shape "
+                         f"{tuple(t.shape)} does not stack {reps} layers")
+
+
+def lm_params_to_numpy(params) -> dict:
+    """The port's parameters as numpy (bf16 as float32)."""
+    return _tree_map(_leaf_to_numpy, params)
+
+
+def lm_cache_from_numpy(cfg, cache, device="cuda") -> dict:
+    """The JAX package's decode cache (``init_cache`` or a decode step's
+    output), as numpy arrays -> the port's, on ``device`` in ``cfg``'s
+    dtype, with ``idx`` as an int."""
+    device = resolve_device(device)
+    dtype = dtype_of(cfg)
+    return {"slots": _tree_map(
+                lambda a: _leaf_from_numpy(a, device).to(dtype),
+                cache["slots"]),
+            "idx": int(np.asarray(cache["idx"]))}
+
+
+def lm_cache_to_numpy(cache) -> dict:
+    """The port's decode cache as numpy (bf16 as float32, ``idx`` an
+    int32 scalar array, as the JAX package keeps it)."""
+    return {"slots": _tree_map(_leaf_to_numpy, cache["slots"]),
+            "idx": np.asarray(cache["idx"], dtype=np.int32)}

@@ -6,7 +6,10 @@ traced once per package, compiled for every ``fusion`` x ``exact``, and
 run once per variant, then eagerly: each output (residues, level,
 scale), each run's op counts and each ``reconcile()`` must be equal.
 The reference's first compiled C2S costs some 30 s of JAX compilation on
-a CPU; everything else reuses its plans.
+a CPU; everything else reuses its plans.  XLA compiles the reference's
+programs with most optimizations off (``unoptimized_reference_compiles``):
+they are integer programs, so the results are the same, and the
+compilation is cheaper.
 
 Both contexts get the same parameters and seed and do the same
 operations in the same order (all of it in the module fixture), so they
@@ -33,7 +36,9 @@ from repro_torch.runtime import (  # noqa: E402
 from test_torch_bootstrap import (  # noqa: E402
     BTP_SMALL, KW_SMALL, VARIANT_IDS, VARIANTS, _trace_stage,
 )
-from test_torch_runtime import _assert_ct_dict_equal, _np  # noqa: E402
+from test_torch_runtime import (  # noqa: E402
+    _assert_ct_dict_equal, _np, unoptimized_reference_compiles,
+)
 
 STAGES = ["c2s", "s2c"]
 SIDES = {
@@ -56,25 +61,27 @@ def stages():
     nh = 1 << (KW_SMALL["logN"] - 1)
     z = (rng.normal(size=nh) + 1j * rng.normal(size=nh)) * 0.01
     out = {"z": z}
-    for side, s in SIDES.items():
-        ctx = s["ctx"]()
-        btp = s["btp"](ctx, **BTP_SMALL)
-        ct = ctx.encrypt(z)
-        ex = s["ex"](ctx)
-        rec = {"ctx": ctx, "btp": btp, "ct": ct}
-        for stage in STAGES:
-            for fusion, exact in VARIANTS:
-                comp = s["compile"](
-                    _trace_stage(s["trace"], s["params"], KW_SMALL, btp,
-                                 stage), fusion=fusion, exact=exact)
+    with unoptimized_reference_compiles():
+        for side, s in SIDES.items():
+            ctx = s["ctx"]()
+            btp = s["btp"](ctx, **BTP_SMALL)
+            ct = ctx.encrypt(z)
+            ex = s["ex"](ctx)
+            rec = {"ctx": ctx, "btp": btp, "ct": ct}
+            for stage in STAGES:
+                for fusion, exact in VARIANTS:
+                    comp = s["compile"](
+                        _trace_stage(s["trace"], s["params"], KW_SMALL, btp,
+                                     stage), fusion=fusion, exact=exact)
+                    before = ctx.counters.snapshot()
+                    res = ex.run(comp, {"x": ct}, with_report=True)
+                    rec[stage, fusion, exact] = (comp, res,
+                                                 ctx.counters.delta(before))
+                fn = (btp.coeff_to_slot if stage == "c2s"
+                      else btp.slot_to_coeff)
                 before = ctx.counters.snapshot()
-                res = ex.run(comp, {"x": ct}, with_report=True)
-                rec[stage, fusion, exact] = (comp, res,
-                                             ctx.counters.delta(before))
-            fn = btp.coeff_to_slot if stage == "c2s" else btp.slot_to_coeff
-            before = ctx.counters.snapshot()
-            rec[stage, "eager"] = (fn(ct), ctx.counters.delta(before))
-        out[side] = rec
+                rec[stage, "eager"] = (fn(ct), ctx.counters.delta(before))
+            out[side] = rec
     return out
 
 

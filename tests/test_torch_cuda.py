@@ -347,3 +347,68 @@ def test_cuda_serving_equals_cpu(cuda):
         a, b = card[rid]["y"], cpu[rid]["y"]
         assert (a.level, a.scale) == (b.level, b.scale)
         assert torch.equal(a.c0.cpu(), b.c0) and torch.equal(a.c1.cpu(), b.c1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logn", [12, 16])
+def test_cuda_distributed_ip_equals_plain(cuda, tmp_path, logn):
+    """IRF and EVF on an NCCL group of one rank: the local inner product
+    goes through the fused-IP kernel (R = 1, no plaintext), once each,
+    and both equal the plain version residue for residue, at the paper's
+    dnum = 3 and l_ext = 48."""
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed
+
+    p = PAPER_PARAMS if logn == 16 else CKKSParams(logN=logn, L=35,
+                                                   alpha=12, k=12)
+    ext = p.q_chain(35) + p.p_primes
+    rng = np.random.default_rng(logn)
+    digits = _res(rng, ext, (3, len(ext), p.N)).to(cuda)
+    evk = _res(rng, ext, (3, 2, len(ext), p.N)).to(cuda)
+    want = fused_ip_plain(digits[None], evk[None], None,
+                          torch.tensor(ext, device=cuda))
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                            world_size=1, rank=0)
+    try:
+        for make in (distributed.ip_irf, distributed.ip_evf):
+            fn, world = make()
+            assert world == 1
+            before = native.LAUNCHES["fused_ip"]
+            got = torch.stack(fn(digits, evk, ext))
+            assert native.LAUNCHES["fused_ip"] == before + 1
+            assert torch.equal(got, want)
+            assert distributed.measure_collectives(
+                fn, digits, evk, ext)["total_bytes"] == 0
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_lm_forward_equals_cpu(cuda):
+    """phi3-medium-14b at full width, cut to two layers, in float32 (TF32
+    off): the same weights give the same logits on the card and on the
+    CPU within 1e-3 (summation order only)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import forward, init_params
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(get_config("phi3_medium_14b"), n_layers=2,
+                              dtype="float32")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+
+    def to_cpu(t):
+        return ({k: to_cpu(v) for k, v in t.items()} if isinstance(t, dict)
+                else [to_cpu(v) for v in t] if isinstance(t, list)
+                else t.cpu())
+
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 8)))
+    with torch.no_grad():
+        card, _ = forward(params, toks.to(cuda), cfg)
+        cpu, _ = forward(to_cpu(params), toks, cfg)
+    assert torch.isfinite(cpu).all()
+    assert float((card.cpu() - cpu).abs().max()) <= 1e-3

@@ -16,6 +16,7 @@ runs each distinct lowered plan once per mode: variants that lower to
 the same steps (``fusion`` on a program without a PKB to fuse, say) are
 compared with that one run, and the port runs every variant.
 """
+import contextlib
 import subprocess
 import sys
 from pathlib import Path
@@ -25,6 +26,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 from repro.core import linear as ref_linear  # noqa: E402
 from repro.core import polyeval as ref_polyeval  # noqa: E402
 from repro.core.ckks import CKKSContext as RefContext  # noqa: E402
@@ -71,6 +73,21 @@ def cases(names):
 
 
 MATVEC, MATVEC_IDS = cases(["diag", "bsgs"])
+
+
+@contextlib.contextmanager
+def unoptimized_reference_compiles():
+    """XLA compiles the reference's programs with most optimizations off
+    while the block runs, and the setting is restored after it.  Nearly
+    all of a first reference run is the compilation of small eager
+    programs, which this makes cheaper; their arithmetic is integer, so
+    every result is the same."""
+    old = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_disable_most_optimizations", old)
 
 
 def make_pair(kw, seed):

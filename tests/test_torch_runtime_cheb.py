@@ -6,7 +6,10 @@ with ``exact=False``, to ``MultiRelinStep``), at ``L=9``: traced in both
 packages, compiled with ``fusion`` and ``exact`` each both ways, run
 with ``run`` and ``run_batched`` (B=2) and held bit for bit, as
 ``test_torch_runtime.py`` (whose helpers this file uses) holds the
-matvec programs.
+matvec programs.  Nearly all of the file's time is the reference's first
+run: some 1,200 small eager programs that XLA compiles, here with most
+optimizations off (``unoptimized_reference_compiles``); they are integer
+programs, so the results are the same.
 """
 import numpy as np
 import pytest
@@ -19,10 +22,16 @@ from repro_torch.dfg.graph import OpKind  # noqa: E402
 from repro_torch.runtime.lower import MultiRelinStep, RelinStep  # noqa: E402
 from test_torch_runtime import (  # noqa: E402
     KW, cases, check_compile, check_eager, check_run, compiled,
-    encrypt_both, make_pair,
+    encrypt_both, make_pair, unoptimized_reference_compiles,
 )
 
 CHEB, CHEB_IDS = cases(["cheb", "cheb_bsgs"])
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _unoptimized_reference():
+    with unoptimized_reference_compiles():
+        yield
 
 
 @pytest.fixture(scope="module")
