@@ -1,11 +1,11 @@
 """Drive the PyTorch/CUDA port's CKKS keyswitch path, its distributed
-keyswitch and its LM serving path once on an H100.
+keyswitch and its LM serving paths once on an H100.
 
     python3 chip_smoke.py
 
 Phases, each printing one JSON line (any mismatch raises, so the script
-exits non-zero); phases 9 and 8 run right after the build, in a fresh
-process, the others in the order below:
+exits non-zero); phases 9, 10 and 8 run right after the build, in a
+fresh process, the others in the order below:
 
   1. build   compile the four CUDA kernels from ``src/repro_torch/csrc``
              (one nvcc per source, in parallel); print the card's name
@@ -122,6 +122,23 @@ each (``bootstrap_kernels``), and
              CPU within 1e-3.  Prints weight GB, peak memory, prefill
              seconds, ms per decode step, tokens/s and the per-step
              bytes bound (every weight and the cache read once);
+ 10. lm_zoo  the other families at full width in bf16, each served as
+             ``lm_serve`` serves phi3 and freed before the next (LM_ZOO):
+             minicpm3-4b (MLA), moonshot-v1-16b-a3b (MoE), arctic-480b
+             (MoE + dense residual, 2 of 35 layers), jamba-1.5-large
+             (Mamba + MoE, Mamba + dense: 2 of 72 layers), xlstm-1.3b,
+             qwen2-vl-2b (M-RoPE) and whisper-base (encoder-decoder).
+             Gates: the output's shape, prompt and vocabulary, finite
+             logits, one decode step captured in a CUDA graph, MLA's
+             decode within 0.2 of its full forward (bf16 at 2 layers,
+             float32 at 62), and a float32 copy (full width cut to 2
+             layers, whisper uncut, arctic and jamba at their reduced
+             configs) equal on the card and the CPU within 1e-3 in
+             prefill, four decode steps and the caches, with stub
+             embeddings and three position streams where the family
+             takes them.  Prints per arch what ``lm_serve`` prints, the
+             step's kernels and graph replay time, and the other
+             families' decode-vs-prefill figures, ungated;
 
 then the kernels' summary line (launches on the main path and on the
 runtime, bootstrap, serve and distributed paths, a row per kernel at its
@@ -1700,12 +1717,12 @@ def _first_layers(params, n: int) -> dict:
     return dict(params, blocks=_tree_map(lambda t: t[:n], params["blocks"]))
 
 
-def _decode_vs_prefill(params, cfg, toks) -> dict:
+def _decode_vs_prefill(params, cfg, toks, tol=LM_DECODE_TOL) -> dict:
     """Teacher-forced decode of ``toks`` against the full forward: the
-    largest difference, the largest excess over the JAX package's bound
-    (|d| - rtol |full|, to compare with its atol), the mean difference,
-    the logits' scale and the share of positions with the same argmax;
-    raises on a non-finite logit."""
+    largest difference, the largest excess over a bound of rtol = atol =
+    ``tol`` (|d| - rtol |full|, to compare with its atol), the mean
+    difference, the logits' scale and the share of positions with the
+    same argmax; raises on a non-finite logit."""
     from repro_torch.models.model import forward, init_cache
 
     B, S = toks.shape
@@ -1718,22 +1735,21 @@ def _decode_vs_prefill(params, cfg, toks) -> dict:
             steps.append(lg[:, 0])
         dec = torch.stack(steps, 1)
     if not (torch.isfinite(full).all() and torch.isfinite(dec).all()):
-        raise AssertionError(f"lm_serve: non-finite logits ({cfg.dtype}, "
+        raise AssertionError(f"{cfg.name}: non-finite logits ({cfg.dtype}, "
                              f"{cfg.n_layers} layers)")
     d = (dec - full).abs()
     return {"max_abs": float(d.max()),
-            "excess": float((d - LM_DECODE_TOL * full.abs()).max()),
+            "excess": float((d - tol * full.abs()).max()),
             "mean_abs": float(d.mean()), "logit_std": float(full.std()),
             "logit_max_abs": float(full.abs().max()),
             "argmax_agree": float((dec.argmax(-1) == full.argmax(-1))
                                   .float().mean())}
 
 
-def _gate_decode(name: str, r: dict) -> None:
-    if r["excess"] > LM_DECODE_TOL:
-        raise AssertionError(f"lm_serve: {name} decode != prefill: max abs "
-                             f"diff {r['max_abs']} over rtol = atol = "
-                             f"{LM_DECODE_TOL}")
+def _gate_decode(name: str, r: dict, tol=LM_DECODE_TOL) -> None:
+    if r["excess"] > tol:
+        raise AssertionError(f"{name} decode != prefill: max abs diff "
+                             f"{r['max_abs']} over rtol = atol = {tol}")
 
 
 def phase_lm_serve(smi: str) -> dict:
@@ -1814,7 +1830,7 @@ def phase_lm_serve(smi: str) -> dict:
               f"bf16_{LM_REF_LAYERS}_layers": _decode_vs_prefill(
                   _first_layers(params, LM_REF_LAYERS),
                   dataclasses.replace(cfg, n_layers=LM_REF_LAYERS), toks)}
-    _gate_decode("bf16", checks[f"bf16_{LM_REF_LAYERS}_layers"])
+    _gate_decode("lm_serve: bf16", checks[f"bf16_{LM_REF_LAYERS}_layers"])
     del params
     torch.cuda.empty_cache()
 
@@ -1823,7 +1839,7 @@ def phase_lm_serve(smi: str) -> dict:
     p32 = init_params(cfg32, torch.Generator(device=dev).manual_seed(SEED),
                       dev)
     checks["f32_full_depth"] = _decode_vs_prefill(p32, cfg32, toks)
-    _gate_decode("float32", checks["f32_full_depth"])
+    _gate_decode("lm_serve: float32", checks["f32_full_depth"])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     # the float32 copy cut to LM_F32_LAYERS layers, on the card and the CPU
@@ -1869,6 +1885,276 @@ def phase_lm_serve(smi: str) -> dict:
     return res
 
 
+# ----------------------------------------------------------------- phase 10
+# The rest of the LM zoo at full width, in bf16, with lm_serve's batch,
+# prompt and greedy tokens: (arch, layers on the card or None for all,
+# the float32 card-against-CPU check: full width cut to that many layers,
+# None for the uncut model, or "reduced" for the REDUCED config where the
+# full-width float32 cut is over 16 GB: arctic's 2 layers are 110 GB,
+# jamba's 46 GB, and a CPU copy and forward that size would cost the
+# phase minutes).  One H100 cannot hold
+# arctic-480b or jamba-1.5-large-398b: arctic keeps 2 of its 35 layers
+# (54.9 GB of bf16), jamba the first 2 of its 72 (Mamba + MoE, Mamba +
+# dense; one 8-layer period with its attention layer is 89 GB).
+LM_ZOO = [
+    ("minicpm3_4b", None, 2),
+    ("moonshot_v1_16b_a3b", None, 2),
+    ("arctic_480b", 2, "reduced"),
+    ("jamba_1_5_large_398b", 2, "reduced"),
+    ("xlstm_1_3b", None, 2),
+    ("qwen2_vl_2b", None, 2),
+    ("whisper_base", None, None),
+]
+# MLA's decode-vs-prefill bound in the JAX package
+# (tests/test_models_smoke.py:98-116), held in bf16 at LM_REF_LAYERS and
+# in float32 at full depth (62 layers, 16.4 GB).  The other families'
+# figures are printed, not gated: the reference gates none of them, MoE
+# capacity depends on the tokens in a call, and the mLSTM's two forms
+# normalise differently (src/repro/models/layers.py:465-467, :481-483).
+LM_MLA_TOL = 0.2
+# stub modality inputs of the float32 check: patch embeddings over the
+# first tokens (vlm), frames of the encoder (audio)
+LM_ZOO_PATCHES, LM_ZOO_FRAMES = 4, 32
+
+
+def _zoo_inputs(cfg, dev) -> dict:
+    """The float32 check's keyword inputs: for qwen2-vl stub patch
+    embeddings and three different position streams (temporal and two
+    spatial), for whisper stub frames; seeded."""
+    rng = np.random.default_rng(SEED)
+    kw = {}
+    if cfg.frontend == "vision":
+        kw["embeds"] = torch.from_numpy(rng.normal(
+            size=(2, LM_ZOO_PATCHES, cfg.d_model)).astype(np.float32))
+    elif cfg.frontend == "audio":
+        kw["embeds"] = torch.from_numpy(rng.normal(
+            size=(2, LM_ZOO_FRAMES, cfg.d_model)).astype(np.float32))
+    return {k: v.to(dev) for k, v in kw.items()}
+
+
+def _zoo_positions(cfg, start: int, n: int, dev):
+    if cfg.pos != "mrope":
+        return {}
+    t = torch.arange(start, start + n, device=dev)
+    return {"positions": torch.stack([t, t // 2, t % 3])[:, None]
+            .expand(3, 2, n)}
+
+
+def _zoo_card_vs_cpu(cfg32, dev) -> dict:
+    """``cfg32`` (float32) on the card and on the CPU from the same
+    weights: prefill, then four decode steps from empty caches; the
+    largest logit and cache differences.  Stub embeds and, under M-RoPE,
+    three different position streams go to both."""
+    from repro_torch.models.model import forward, init_cache, init_params
+
+    p_card = init_params(cfg32, torch.Generator(device=dev)
+                         .manual_seed(SEED), dev)
+    p_cpu = _tree_map(lambda t: t.cpu(), p_card)
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg32.vocab, (2, 8)))
+    kw = _zoo_inputs(cfg32, dev)
+    kw_cpu = {k: v.cpu() for k, v in kw.items()}
+    errs = {}
+    with torch.no_grad():
+        card, _ = forward(p_card, toks.to(dev), cfg32,
+                          **kw, **_zoo_positions(cfg32, 0, 8, dev))
+        t0 = time.perf_counter()
+        cpu, _ = forward(p_cpu, toks, cfg32, **kw_cpu,
+                         **_zoo_positions(cfg32, 0, 8, "cpu"))
+        cpu_s = time.perf_counter() - t0
+        if not torch.isfinite(cpu).all():
+            raise AssertionError(f"lm_zoo: {cfg32.name} CPU logits not finite")
+        errs["prefill"] = float((card.cpu() - cpu).abs().max())
+        # decode: the encoder's frames at every step, no patch embeds
+        dkw = kw if cfg32.enc_dec else {}
+        dkw_cpu = kw_cpu if cfg32.enc_dec else {}
+        c_card = init_cache(cfg32, 2, 8, device=dev)
+        c_cpu = init_cache(cfg32, 2, 8, device="cpu")
+        step_err = 0.0
+        for t in range(4):
+            card, c_card = forward(p_card, toks[:, t:t + 1].to(dev), cfg32,
+                                   cache=c_card, **dkw,
+                                   **_zoo_positions(cfg32, t, 1, dev))
+            cpu, c_cpu = forward(p_cpu, toks[:, t:t + 1], cfg32,
+                                 cache=c_cpu, **dkw_cpu,
+                                 **_zoo_positions(cfg32, t, 1, "cpu"))
+            step_err = max(step_err, float((card.cpu() - cpu).abs().max()))
+        errs["decode"] = step_err
+        leaves_card, leaves_cpu = [], []
+        _tree_map(leaves_card.append, c_card["slots"])
+        _tree_map(leaves_cpu.append, c_cpu["slots"])
+        errs["cache"] = max(float((a.cpu() - b).abs().max())
+                            for a, b in zip(leaves_card, leaves_cpu))
+    weight_gb = _tree_bytes(p_card) / 1e9
+    del p_card, p_cpu, c_card
+    torch.cuda.empty_cache()
+    if not max(errs.values()) <= LM_F32_TOL:
+        raise AssertionError(f"lm_zoo: {cfg32.name} float32 card != CPU: "
+                             f"{errs}")
+    return {"layers": cfg32.n_layers, "d_model": cfg32.d_model,
+            "weight_gb": weight_gb, "max_abs": errs,
+            "inputs": sorted(kw) + (["positions (3 streams)"]
+                                    if cfg32.pos == "mrope" else []),
+            "cpu_prefill_s": cpu_s}
+
+
+def _zoo_arch(arch: str, cut, check, smi: str, dev="cuda") -> dict:
+    """One architecture of the zoo served at full width in bf16 (cut to
+    ``cut`` layers when given): ``generate`` twice (the first warms up),
+    the output's gates, the step's bytes bound, one decode step in a CUDA
+    graph, decode against prefill, and the float32 card-against-CPU
+    check (``check``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels.timing import cuda_ms
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import (
+        forward, init_cache, init_params, layer_pattern,
+    )
+
+    t_arch = time.perf_counter()
+    dev = torch.device(dev)
+    full_cfg = get_config(arch)
+    cfg = (dataclasses.replace(full_cfg, n_layers=cut) if cut
+           else full_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = _tree_bytes(params)
+    n_params = _tree_sum(lambda t: t.numel(), params)
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    runs = []
+    for _ in range(2):
+        times = {}
+        t0 = time.perf_counter()
+        out = generate(cfg, params, prompts, LM_GEN, times)
+        runs.append(dict(times, total_s=time.perf_counter() - t0))
+    if out.shape != (LM_BATCH, LM_PROMPT + LM_GEN) or not np.array_equal(
+            out[:, :LM_PROMPT], prompts):
+        raise AssertionError(f"lm_zoo: {arch} bad output {out.shape}")
+    if not ((out >= 0) & (out < cfg.vocab)).all():
+        raise AssertionError(f"lm_zoo: {arch} token out of the vocabulary")
+    warm = runs[-1]
+    step_ms = warm["decode_s"] / LM_GEN * 1e3
+    # a decode step reads every weight once (a MoE step runs every expert
+    # on its capacity rows), and the cache
+    cache_bytes = _tree_bytes(init_cache(cfg, LM_BATCH, LM_PROMPT + LM_GEN,
+                                         device=dev)["slots"])
+    bound_ms = (weight_bytes + cache_bytes) / PEAK_BYTES * 1e3
+
+    cache = init_cache(cfg, LM_BATCH, LM_PROMPT + LM_GEN, device=dev)
+    cache["idx"] = LM_PROMPT
+    cur = torch.as_tensor(out[:, LM_PROMPT:LM_PROMPT + 1], dtype=torch.int64,
+                          device=dev)
+
+    def step():
+        with torch.no_grad():
+            return forward(params, cur, cfg, cache=cache)[0]
+
+    eager = step()
+    if not torch.isfinite(eager).all():
+        raise AssertionError(f"lm_zoo: {arch} non-finite decode logits")
+    step_kernels, _ = graph_kernels(step)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        step()
+    graph_ms = cuda_ms(g.replay, reps=5, batches=3, hide_host=False)
+    del g, cache
+
+    toks = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
+    pattern, _ = layer_pattern(cfg)
+    mixers = {s.mixer for s in pattern}
+    checks = {}
+    if "mla" in mixers:
+        checks["bf16_full_depth"] = _decode_vs_prefill(params, cfg, toks,
+                                                       LM_MLA_TOL)
+        ref_cfg = dataclasses.replace(cfg, n_layers=LM_REF_LAYERS)
+        checks[f"bf16_{LM_REF_LAYERS}_layers"] = _decode_vs_prefill(
+            _first_layers(params, LM_REF_LAYERS), ref_cfg, toks, LM_MLA_TOL)
+        _gate_decode(f"lm_zoo: {arch} bf16",
+                     checks[f"bf16_{LM_REF_LAYERS}_layers"], LM_MLA_TOL)
+    elif not cfg.moe or "mamba" in mixers:
+        # printed only (jamba's cut has MoE too: capacity at T = 4 and
+        # T = 64 differs, so its figures mix both effects)
+        checks["bf16_on_card_depth"] = _decode_vs_prefill(params, cfg, toks)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    torch.cuda.empty_cache()
+    if "mla" in mixers:
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = init_params(cfg32, torch.Generator(device=dev)
+                          .manual_seed(SEED), dev)
+        checks["f32_full_depth"] = _decode_vs_prefill(p32, cfg32, toks,
+                                                      LM_MLA_TOL)
+        _gate_decode(f"lm_zoo: {arch} float32", checks["f32_full_depth"],
+                     LM_MLA_TOL)
+        del p32
+        torch.cuda.empty_cache()
+
+    if check == "reduced":
+        cfg32 = dataclasses.replace(reduced_config(arch), dtype="float32")
+        skipped = {"full_width_f32_gb_of_the_card_cut": 4 * n_params / 1e9}
+    else:
+        cfg32 = dataclasses.replace(full_cfg, dtype="float32",
+                                    n_layers=check or full_cfg.n_layers)
+        skipped = None
+    f32 = _zoo_card_vs_cpu(cfg32, dev)
+
+    return {"phase": "lm_zoo", "arch": arch, "card": smi,
+            "config": {"n_layers": cfg.n_layers,
+                       "n_layers_full": full_cfg.n_layers,
+                       "d_model": cfg.d_model, "vocab": cfg.vocab,
+                       "pattern": [f"{s.mixer}+{s.ffn}" for s in pattern],
+                       "dtype": cfg.dtype},
+           "n_params": n_params, "weight_gb": weight_bytes / 1e9,
+           "init_s": init_s, "peak_mem_gb": peak_gb,
+           "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
+           "runs": runs, "prefill_s": warm["prefill_s"],
+           "decode_ms_per_step": step_ms,
+           "decode_tokens_per_s": LM_BATCH * LM_GEN / warm["decode_s"],
+           "tokens_per_s": LM_BATCH * LM_GEN / warm["total_s"],
+           "bound_ms_per_step": bound_ms, "bound_by": "bytes",
+           "bound_share": bound_ms / step_ms,
+           "step_kernels": step_kernels, "step_graph_device_ms": graph_ms,
+           "graph_bound_share": bound_ms / graph_ms,
+           "decode_vs_prefill": checks,
+           "decode_gated": "mla" in mixers,
+           "f32_card_vs_cpu": f32, "f32_full_width_left_out": skipped,
+           "seconds": time.perf_counter() - t_arch}
+
+
+def phase_lm_zoo(smi: str) -> dict:
+    """Every LM family beyond the dense one (LM_ZOO) served at full
+    width through ``launch/serve.generate``, one at a time, each model
+    freed before the next; one JSON line each and one for the phase.
+    Gates: the output's shape, its prompt kept, every token inside the
+    vocabulary, finite logits, MLA's decode within the JAX package's
+    bound of the full forward (bf16 at 2 layers, float32 at full depth),
+    and the float32 card-against-CPU check within LM_F32_TOL."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = []
+    for arch, cut, check in LM_ZOO:
+        r = _zoo_arch(arch, cut, check, smi)
+        emit(r)
+        rows.append({k: r[k] for k in ("arch", "weight_gb",
+                                       "decode_ms_per_step",
+                                       "step_graph_device_ms",
+                                       "bound_ms_per_step", "seconds")})
+        gc.collect()
+        torch.cuda.empty_cache()
+    res = {"phase": "lm_zoo", "card": smi, "archs": rows,
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1878,9 +2164,10 @@ def main() -> int:
 
     t_start = time.perf_counter()
     smi = phase_build(native)
-    # the LM path first, in a fresh process: its decode step is bound by
-    # Python dispatch, which the FHE phases' heap would slow down
+    # the LM paths first, in a fresh process: their decode steps are bound
+    # by Python dispatch, which the FHE phases' heap would slow down
     phase_lm_serve(smi)
+    phase_lm_zoo(smi)
     dist_res = phase_distributed(native)
     kern = phase_kernels(PAPER_PARAMS, native)
     main_res = phase_main(PAPER_PARAMS, native)

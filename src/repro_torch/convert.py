@@ -20,7 +20,7 @@ import torch
 from repro_torch.core.ckks import Ciphertext, Plaintext
 from repro_torch.core.keys import EvalKey, KeyChain
 from repro_torch.core.poly import PolyContext, resolve_device
-from repro_torch.models.model import dtype_of, layer_pattern
+from repro_torch.models.model import layer_pattern
 from repro_torch.workloads.models import (
     Activation, Dense, Workload, scaled_tanh, sigmoid4,
 )
@@ -171,17 +171,21 @@ def _tree_map(fn, tree):
 
 def lm_params_from_numpy(cfg, tree, device="cuda") -> dict:
     """The JAX package's ``init_params(cfg)`` pytree, as numpy arrays ->
-    the port's parameters on ``device``, every leaf in ``cfg``'s dtype.
+    the port's parameters on ``device``.
 
-    Both packages keep the same pytree: ``blocks[s][...][r]`` is layer
-    ``r * len(pattern) + s``."""
+    Each leaf keeps its own dtype: bf16 stays bf16 (bit for bit) and
+    float32 stays float32, as the reference keeps some leaves float32
+    under a bf16 config (the MoE router, Mamba's ``dt_bias``, ``A_log``
+    and ``D``, the mLSTM's ``wif``).  Both packages keep the same
+    pytree: ``blocks[s][...][r]`` is layer ``r * len(pattern) + s``, and
+    an encoder-decoder's ``encoder`` and ``cross`` are lists, one entry
+    a layer."""
     device = resolve_device(device)
     pattern, reps = layer_pattern(cfg)
     if len(tree["blocks"]) != len(pattern):
         raise ValueError(f"{cfg.name}: {len(tree['blocks'])} block slots, "
                          f"the pattern has {len(pattern)}")
-    dtype = dtype_of(cfg)
-    out = _tree_map(lambda a: _leaf_from_numpy(a, device).to(dtype), tree)
+    out = _tree_map(lambda a: _leaf_from_numpy(a, device), tree)
     for slot in out["blocks"]:
         _tree_map(lambda t: _check_reps(t, reps, cfg), slot)
     return out
@@ -200,13 +204,12 @@ def lm_params_to_numpy(params) -> dict:
 
 def lm_cache_from_numpy(cfg, cache, device="cuda") -> dict:
     """The JAX package's decode cache (``init_cache`` or a decode step's
-    output), as numpy arrays -> the port's, on ``device`` in ``cfg``'s
-    dtype, with ``idx`` as an int."""
+    output), as numpy arrays -> the port's, on ``device``, each leaf in
+    its own dtype (the float32 states ``ssm``, ``C``, ``n`` and the
+    sLSTM's ``c`` stay float32), with ``idx`` as an int."""
     device = resolve_device(device)
-    dtype = dtype_of(cfg)
-    return {"slots": _tree_map(
-                lambda a: _leaf_from_numpy(a, device).to(dtype),
-                cache["slots"]),
+    return {"slots": _tree_map(lambda a: _leaf_from_numpy(a, device),
+                               cache["slots"]),
             "idx": int(np.asarray(cache["idx"]))}
 
 

@@ -3,10 +3,11 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3_medium_14b \
       --batch 4 --prompt-len 16 --gen 32
 
-Counterpart of the JAX package's ``launch/serve.py``.  Runs on the card
-unless ``--device cpu`` is given; ``--reduced`` takes the architecture's
-smoke config.  Weights and prompts are random, seeded with 0 as in the
-JAX package's ``launch/serve.py``.
+Counterpart of the JAX package's ``launch/serve.py``, for all ten
+architectures (``--arch``, any name of ``configs.ARCHS``).  Runs on the
+card unless ``--device cpu`` is given; ``--reduced`` takes the
+architecture's smoke config.  Weights and prompts are random, seeded
+with 0 as in the JAX package's ``launch/serve.py``.
 """
 from __future__ import annotations
 

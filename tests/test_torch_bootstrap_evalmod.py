@@ -11,7 +11,9 @@ q0) with I a small integer, and EvalMod returns about (q0 / scale) *
 sin(2 pi x) / (2 pi).
 
 The reference runs EvalMod once, eagerly (some 65 s of JAX compilation
-on a CPU).  The port's eager run, and its compiled run (``fusion=False,
+on a CPU), with most of XLA's optimizations off
+(``unoptimized_reference_compiles``): its programs are integer, so the
+results are the same.  The port's eager run, and its compiled run (``fusion=False,
 exact=True`` replays the eager run bit for bit), must give its residues.
 """
 import numpy as np
@@ -29,7 +31,9 @@ from repro_torch.runtime import (  # noqa: E402
     ProgramExecutor, TraceContext, compile_program,
 )
 from test_torch_bootstrap import BTP_BOOT, KW_BOOT  # noqa: E402
-from test_torch_runtime import _assert_ct_dict_equal, _np  # noqa: E402
+from test_torch_runtime import (  # noqa: E402
+    _assert_ct_dict_equal, _np, unoptimized_reference_compiles,
+)
 
 # ModRaise -> level L; C2S -> L - n_groups; the re/im split's rescale -> 1 less
 LEVEL_IN = KW_BOOT["L"] - BTP_BOOT["n_groups"] - 1
@@ -37,6 +41,12 @@ LEVEL_IN = KW_BOOT["L"] - BTP_BOOT["n_groups"] - 1
 # the degree-27 approximation on [-3.5, 3.5] at scale 2^29 (2.4e-3 on
 # this input)
 MAX_ERR = 1e-2
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _unoptimized_reference():
+    with unoptimized_reference_compiles():
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -412,3 +412,52 @@ def test_cuda_lm_forward_equals_cpu(cuda):
         cpu, _ = forward(to_cpu(params), toks, cfg)
     assert torch.isfinite(cpu).all()
     assert float((card.cpu() - cpu).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", [
+    "minicpm3_4b", "moonshot_v1_16b_a3b", "arctic_480b",
+    "jamba_1_5_large_398b", "xlstm_1_3b", "qwen2_vl_2b", "whisper_base"])
+def test_cuda_lm_zoo_forward_equals_cpu(cuda, arch):
+    """Each family of the LM zoo beyond the dense one at its reduced
+    config in float32 (TF32 off): the same weights give the same prefill
+    logits, and the same logits and caches after four decode steps, on
+    the card and on the CPU within 1e-3 (summation order only)."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.model import forward, init_cache, init_params
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(reduced_config(arch), dtype="float32")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+
+    def tree(fn, t):
+        return ({k: tree(fn, v) for k, v in t.items()} if isinstance(t, dict)
+                else [tree(fn, v) for v in t] if isinstance(t, list)
+                else fn(t))
+
+    p_cpu = tree(lambda t: t.cpu(), params)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 8)))
+    with torch.no_grad():
+        card, _ = forward(params, toks.to(cuda), cfg)
+        cpu, _ = forward(p_cpu, toks, cfg)
+        assert torch.isfinite(cpu).all()
+        assert float((card.cpu() - cpu).abs().max()) <= 1e-3
+        c_card = init_cache(cfg, 2, 8, device=cuda)
+        c_cpu = init_cache(cfg, 2, 8, device="cpu")
+        for t in range(4):
+            card, c_card = forward(params, toks[:, t:t + 1].to(cuda), cfg,
+                                   cache=c_card)
+            cpu, c_cpu = forward(p_cpu, toks[:, t:t + 1], cfg, cache=c_cpu)
+            assert float((card.cpu() - cpu).abs().max()) <= 1e-3
+
+    def leaves(t):
+        out = []
+        tree(out.append, t)
+        return out
+
+    assert max(float((a.cpu() - b).abs().max()) for a, b in
+               zip(leaves(c_card["slots"]), leaves(c_cpu["slots"]))) <= 1e-3

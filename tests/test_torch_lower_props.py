@@ -11,7 +11,10 @@ port shows the same gap).
 
 The hypothesis sweep neither reads nor writes an example database and
 draws the same cases in every run (``database=None, derandomize=True``
-on the test itself); nothing is set at import time.
+on the test itself); nothing is set at import time.  The reference's
+programs compile with most of XLA's optimizations off
+(``unoptimized_reference_compiles``, restored after the module); they
+are integer, so their results are the same.
 """
 import numpy as np
 import pytest
@@ -31,6 +34,7 @@ from repro_torch.core.params import CKKSParams  # noqa: E402
 from repro_torch.runtime import (  # noqa: E402
     ProgramExecutor, TraceContext, compile_program,
 )
+from test_torch_runtime import unoptimized_reference_compiles  # noqa: E402
 
 try:
     from hypothesis import HealthCheck, given, settings
@@ -41,6 +45,12 @@ except ImportError:
 
 # tests/test_lower_props.py's parameters
 KW = dict(logN=7, L=6, alpha=2, k=3, q_bits=29, scale_bits=29)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _unoptimized_reference():
+    with unoptimized_reference_compiles():
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -34,7 +34,6 @@ from repro_torch.configs.base import n_active_params  # noqa: E402
 from repro_torch.models import layers, model  # noqa: E402
 
 DENSE = ["stablelm_3b", "phi3_medium_14b", "command_r_35b"]
-OTHERS = [a for a in configs.ARCHS if a not in DENSE]
 DTYPES = ["float32", "bfloat16"]
 TOL = {"float32": 1e-4, "bfloat16": 0.02}
 B, S = 2, 8
@@ -88,15 +87,6 @@ def test_configs_equal(arch):
         rpat, rreps = ref_model.layer_pattern(ref)
         assert [dataclasses.asdict(s) for s in pat] == \
             [dataclasses.asdict(s) for s in rpat] and reps == rreps
-
-
-@pytest.mark.parametrize("arch", OTHERS)
-def test_unported_families_raise(arch):
-    cfg = configs.reduced_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        model.init_params(cfg, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        model.init_cache(cfg, 1, 4, device=CPU)
 
 
 @pytest.mark.parametrize("arch", DENSE)

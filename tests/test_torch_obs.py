@@ -12,7 +12,10 @@ the port), on ``engine.kernel_dispatch`` and on the ``exec.step.*``
 spans.
 
 Each package has its own global tracer.  The ``tracing`` fixture turns
-both on for one test and puts both back as it found them.
+both on for one test and puts both back as it found them.  The
+reference's programs compile with most of XLA's optimizations off
+(``unoptimized_reference_compiles``, restored after the module); they
+are integer, so their results are the same.
 """
 import numpy as np
 import pytest
@@ -34,6 +37,7 @@ from repro_torch.obs.tracer import NULL_SPAN  # noqa: E402
 from repro_torch.runtime import (  # noqa: E402
     ProgramExecutor, TraceContext, compile_program,
 )
+from test_torch_runtime import unoptimized_reference_compiles  # noqa: E402
 
 # tests/test_obs.py's parameters
 KW = dict(logN=8, L=4, alpha=2, k=2, q_bits=29, scale_bits=29)
@@ -41,6 +45,12 @@ DEVICE_KEYS = ("backend", "interpret")
 VARIANTS = [(f, e) for f in (False, True) for e in (True, False)]
 VARIANT_IDS = [f"{'fused' if f else 'unfused'}-{'exact' if e else 'inexact'}"
                for f, e in VARIANTS]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _unoptimized_reference():
+    with unoptimized_reference_compiles():
+        yield
 
 
 def _saved(tracer):
