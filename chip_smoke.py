@@ -1,11 +1,11 @@
 """Drive the PyTorch/CUDA port's CKKS keyswitch path, its distributed
-keyswitch and its LM serving paths once on an H100.
+keyswitch and its LM serving and training paths once on an H100.
 
     python3 chip_smoke.py
 
 Phases, each printing one JSON line (any mismatch raises, so the script
-exits non-zero); phases 9, 10 and 8 run right after the build, in a
-fresh process, the others in the order below:
+exits non-zero); phases 9, 10, 11 and 8 run right after the build, in
+a fresh process, the others in the order below:
 
   1. build   compile the four CUDA kernels from ``src/repro_torch/csrc``
              (one nvcc per source, in parallel); print the card's name
@@ -139,6 +139,33 @@ each (``bootstrap_kernels``), and
              takes them.  Prints per arch what ``lm_serve`` prints, the
              step's kernels and graph replay time, and the other
              families' decode-vs-prefill figures, ungated;
+ 11. lm_train
+             the training path (``models/steps.make_train_step``,
+             ``train/``, ``data/``), TF32 off: stablelm-3b at full width
+             in bf16 (32 layers, d = 2560, 2.67 B parameters, float32
+             AdamW moments; ``launch/train.py``'s defaults: AdamW(lr=1e-3,
+             warmup_steps=20), ``TokenPipeline`` batch 8, sequence 128),
+             10 steps called directly, each timed to a synchronize.
+             Gates: every loss and gradient norm finite, every parameter
+             leaf changed by step 1 unless its gradient is zero (an unused
+             leaf) or its largest possible first step is under a quarter
+             of its bf16 ulp (``_unmoved``).  Prints tokens/s, peak
+             memory, the GB of weights, gradients and moments, the step's
+             FLOP bound (6 x params x tokens at the bf16 dense peak) and
+             the optimizer's bytes bound (22 B a parameter), and one step
+             captured in a CUDA graph (kernels, device time of a replay),
+             or why it does not capture.  Then a float32 copy cut to 2
+             full-width layers: loss, global norm and every gradient leaf
+             on the card equal to the CPU's within 1e-4 of the leaf's
+             scale; the ``Trainer`` at stablelm's REDUCED config (30
+             steps lower the loss by 0.1, checkpoints in a temporary
+             directory restore bit for bit, a resume runs only the
+             remaining steps, microbatches=2 and int8 compression runs
+             finite); and one train step of each other architecture
+             (TRAIN_ZOO: 2 full-width layers, whisper uncut, arctic and
+             jamba at REDUCED) with a finite loss and gradient norm, and
+             its float32 REDUCED copy card against CPU as above.  The
+             FHE kernels' launches in the phase are printed: none;
 
 then the kernels' summary line (launches on the main path and on the
 runtime, bootstrap, serve and distributed paths, a row per kernel at its
@@ -154,6 +181,7 @@ from __future__ import annotations
 import ctypes
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -249,22 +277,16 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def graph_kernels(fn):
-    """(kernels, output) of one ``fn()`` captured into a CUDA graph and
-    replayed: the kernel nodes of the graph are the device kernels the
-    call enqueues (copies and fills are nodes of other types), read from
-    the graph through the driver API, and the output is the replay's.
-    Capture also fails if the call launches on a stream other than the
-    current one or syncs with the host."""
+def kernel_nodes(g) -> int:
+    """The kernel nodes of a captured CUDA graph (made with
+    ``keep_graph=True``), read through the driver API: the device kernels
+    its replay runs (copies and fills are nodes of other types)."""
     drv = ctypes.CDLL("libcuda.so.1")
 
     def check(rc: int, what: str) -> None:
         if rc != 0:
             raise RuntimeError(f"{what}: CUresult {rc}")
 
-    g = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(g):
-        out = fn()
     graph = ctypes.c_void_p(g.raw_cuda_graph())
     n = ctypes.c_size_t(0)
     check(drv.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
@@ -276,11 +298,24 @@ def graph_kernels(fn):
         check(drv.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
               "cuGraphNodeGetType")
         kinds.append(kind.value)
+    return kinds.count(CU_GRAPH_NODE_TYPE_KERNEL)
+
+
+def graph_kernels(fn):
+    """(kernels, output) of one ``fn()`` captured into a CUDA graph and
+    replayed: the graph's kernel nodes are the device kernels the call
+    enqueues, and the output is the replay's.  Capture also fails if the
+    call launches on a stream other than the current one or syncs with
+    the host."""
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        out = fn()
+    kernels = kernel_nodes(g)
     g.replay()
     torch.cuda.synchronize()
     out = out.clone()
     g.reset()
-    return kinds.count(CU_GRAPH_NODE_TYPE_KERNEL), out
+    return kernels, out
 
 
 def bconv_ops(batch: int, ls: int, ld: int, n: int, g_acc: int) -> int:
@@ -2155,6 +2190,487 @@ def phase_lm_zoo(smi: str) -> dict:
     return res
 
 
+# ----------------------------------------------------------------- phase 11
+# Training: stablelm-3b at full width with launch/train.py's defaults
+# (AdamW(lr=1e-3, warmup_steps=20), batch 8, sequence 128), steps called
+# directly: Trainer.run would end with a blocking checkpoint of about
+# 27 GB (weights and float32 moments)
+TRAIN_ARCH = "stablelm_3b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 10
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 20
+# H100 SXM dense bf16 tensor-core peak, FLOP/s; AdamW moves 22 bytes a
+# parameter (bf16 weight and gradient read, float32 m and v read, the
+# three written back)
+PEAK_BF16_FLOPS = 989e12
+ADAMW_BYTES_PER_PARAM = 22
+# float32 card against CPU: loss, global norm and every gradient leaf
+# within TRAIN_F32_TOL x the leaf's scale: its largest magnitude, or
+# 1e-3 x the tree's largest if that is larger (a gradient that is zero in
+# exact arithmetic, such as the key bias on stablelm's unrotated 75% of
+# each head, holds only rounding noise); batch 2, sequence 32
+TRAIN_F32_TOL = 1e-4
+TRAIN_F32_LAYERS = 2
+TRAIN_F32_BATCH, TRAIN_F32_SEQ = 2, 32
+# the trainer at stablelm's REDUCED config: tests/test_train.py:94-115
+TRAINER_STEPS, TRAINER_RESUME_TO, TRAINER_EXTRA_STEPS = 30, 35, 5
+TRAINER_DROP = 0.1
+# one train step of every other architecture on the card, in bf16:
+# (arch, layers: 2 of the full width, None for the uncut model, or
+# "reduced": arctic's and jamba's 2-layer cuts are 54.9 and 23.2 GB of
+# bf16 weights, which do not fit with gradients and moments)
+TRAIN_ZOO = [
+    ("phi3_medium_14b", 2), ("command_r_35b", 2), ("minicpm3_4b", 2),
+    ("moonshot_v1_16b_a3b", 2), ("arctic_480b", "reduced"),
+    ("jamba_1_5_large_398b", "reduced"), ("xlstm_1_3b", 2),
+    ("qwen2_vl_2b", 2), ("whisper_base", None),
+]
+# stub modality inputs: patch embeddings over the first tokens (vlm),
+# frames of the encoder (audio)
+TRAIN_PATCHES, TRAIN_FRAMES = 4, 32
+
+
+class NormRecorder:
+    """An AdamW-like optimizer that records the gradients' global norm
+    (a tensor, no host sync) of every update and defers to ``opt``."""
+
+    def __init__(self, opt):
+        self.opt = opt
+        self.norms = []
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, params, grads, state):
+        from repro_torch.train.optimizer import global_norm
+
+        self.norms.append(global_norm(grads))
+        return self.opt.update(params, grads, state)
+
+
+def _train_batch(cfg, batch: int, seq: int, dev, step: int = 0) -> dict:
+    """``TokenPipeline.batch_at(step)`` on ``dev``, with the family's
+    stub embeddings (in the model's dtype) and three different M-RoPE
+    position streams; seeded."""
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+
+    pipe = TokenPipeline(PipelineConfig(vocab=cfg.vocab, seq_len=seq,
+                                        global_batch=batch, seed=SEED))
+    out = {k: torch.from_numpy(v).to(dev)
+           for k, v in pipe.batch_at(step).items()}
+    rng = np.random.default_rng(SEED + step)
+    n = {"vision": TRAIN_PATCHES, "audio": TRAIN_FRAMES}.get(cfg.frontend)
+    if n:
+        out["embeds"] = torch.from_numpy(rng.normal(
+            size=(batch, n, cfg.d_model)).astype(np.float32)).to(
+                dev, getattr(torch, cfg.dtype))
+    if cfg.pos == "mrope":
+        t = torch.arange(seq, device=dev)
+        out["positions"] = torch.stack([t, t // 2, t % 3])[:, None] \
+            .expand(3, batch, seq)
+    return out
+
+
+def _leaf_scales(flat: list) -> list[float]:
+    maxes = [float(t.abs().max()) for t in flat]
+    top = max(maxes)
+    return [max(m, 1e-3 * top) for m in maxes]
+
+
+def _grads_card_vs_cpu(cfg32, dev) -> dict:
+    """``cfg32`` (float32) from the same random weights on the card and
+    on the CPU: the loss, the global norm and every gradient leaf of one
+    ``value_and_grad`` on the same batch, held within TRAIN_F32_TOL."""
+    from repro_torch.models.model import init_params
+    from repro_torch.models.steps import value_and_grad
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.tree import leaves
+
+    p_card = init_params(cfg32, torch.Generator(device=dev)
+                         .manual_seed(SEED), dev)
+    p_cpu = _tree_map(lambda t: t.cpu(), p_card)
+    batch = _train_batch(cfg32, TRAIN_F32_BATCH, TRAIN_F32_SEQ, dev)
+    loss, grads = value_and_grad(p_card, batch, cfg32)
+    t0 = time.perf_counter()
+    loss_c, grads_c = value_and_grad(
+        p_cpu, {k: v.cpu() for k, v in batch.items()}, cfg32)
+    cpu_s = time.perf_counter() - t0
+    norm, norm_c = float(global_norm(grads)), float(global_norm(grads_c))
+    flat, flat_c = leaves(grads), leaves(grads_c)
+    worst = 0.0
+    for g, gc, sc in zip(flat, flat_c, _leaf_scales(flat_c)):
+        if g.dtype != gc.dtype:
+            raise AssertionError(f"lm_train: {cfg32.name} grad dtype "
+                                 f"{g.dtype} != {gc.dtype}")
+        worst = max(worst, float((g.cpu() - gc).abs().max()) / sc)
+    errs = {"loss": abs(float(loss) - float(loss_c)) / abs(float(loss_c)),
+            "global_norm": abs(norm - norm_c) / norm_c,
+            "grad_leaf_worst": worst}
+    n_params = sum(t.numel() for t in leaves(p_card))
+    del p_card, p_cpu, grads, grads_c
+    torch.cuda.empty_cache()
+    if not (math.isfinite(norm) and max(errs.values()) <= TRAIN_F32_TOL):
+        raise AssertionError(f"lm_train: {cfg32.name} float32 card != CPU "
+                             f"(relative to the leaf scale): {errs}")
+    return {"layers": cfg32.n_layers, "d_model": cfg32.d_model,
+            "n_params": n_params, "loss": float(loss_c),
+            "global_norm": norm_c, "rel_err": errs,
+            "leaves": len(flat), "cpu_value_and_grad_s": cpu_s}
+
+
+def _capture_train_step(step_fn) -> dict:
+    """One train step captured into a CUDA graph after a warm-up step on
+    a side stream; its kernel nodes and the device time of a replay (a
+    replay is a train step: it updates the weights).  The reason, if the
+    step does not capture."""
+    from repro_torch.kernels.timing import cuda_ms
+
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step_fn()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(g):
+            loss = step_fn()
+        kernels = kernel_nodes(g)
+        g.instantiate()
+        graph_ms = cuda_ms(g.replay, reps=3, batches=3, hide_host=False)
+        ok = bool(torch.isfinite(loss).all())
+        g.reset()
+        del g
+    except Exception as e:   # printed, not gated
+        torch.cuda.synchronize()
+        return {"captured": False, "reason": f"{type(e).__name__}: {e}"[:400]}
+    return {"captured": True, "kernels": kernels, "device_ms": graph_ms,
+            "replay_loss_finite": ok}
+
+
+def _unmoved(before: dict, params, state, lr1: float, wd: float) -> dict:
+    """The parameter leaves (by checkpoint key) equal to ``before`` after
+    AdamW's first step (learning rate ``lr1``), by cause.  ``unused``: the gradient is zero
+    everywhere (its first moment is), so the step is zero (the up bias of
+    a biased SwiGLU, which the reference leaves out of the product).
+    ``below_rounding``: no element is zero, and the largest step the
+    first update can take, lr1 x (1 + wd x max|p|) (Adam's first
+    ``mhat / (sqrt(vhat) + eps)`` is at most 1 in magnitude), is under a
+    quarter of the bf16 ulp at the leaf's smallest magnitude, so every
+    element rounds back (the norm weights at 1.0).  ``other``: any other,
+    which fails the phase."""
+    from repro_torch.train.checkpoint import _flatten
+
+    m = _flatten(state["m"])
+    out = {"unused": [], "below_rounding": [], "other": []}
+    for k, t in _flatten(params).items():
+        if not torch.equal(t, before[k]):
+            continue
+        a = t.float().abs()
+        low = float(a.min())
+        step_max = lr1 * (1 + wd * float(a.max()))
+        if not bool(m[k].any()):
+            out["unused"].append(k)
+        elif low > 0 and step_max < 2.0 ** (math.floor(math.log2(low)) - 9):
+            out["below_rounding"].append(k)
+        else:
+            out["other"].append(k)
+    return out
+
+
+def _step_breakdown(cfg, params, state, opt, batch) -> dict:
+    """Median ms of 3 eager calls of each part of a train step, each call
+    ending in a synchronize: ``value_and_grad`` (forward and backward),
+    the gradients' global norm, and AdamW's update (which computes the
+    norm again).  The updates train the weights on."""
+    from repro_torch.models.steps import value_and_grad
+    from repro_torch.train.optimizer import global_norm
+
+    def timed(fn) -> float:
+        out = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(out))
+
+    held = {}
+
+    def grads():
+        held.clear()
+        held["g"] = value_and_grad(params, batch, cfg)[1]
+
+    res = {"value_and_grad": timed(grads)}
+    g = held.pop("g")
+    res["global_norm"] = timed(lambda: global_norm(g))
+    res["adamw_update"] = timed(lambda: opt.update(params, g, state))
+    return res
+
+
+def _train_full_width(smi: str, dev) -> dict:
+    """stablelm-3b at full width in bf16: TRAIN_STEPS steps of
+    ``make_train_step`` on the launcher's defaults, timed eagerly; the
+    gates; the bounds; the parts of a step; one step captured in a CUDA
+    graph.  Peak memory of step 1 (with a copy of the weights for the
+    gate), of steps 2 on (training alone), and of the breakdown and the
+    capture."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.train.checkpoint import _flatten
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.tree import leaves
+
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    opt = NormRecorder(AdamW(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP))
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    flat = leaves(params)
+    n_leaves = len(flat)
+    n_params = sum(t.numel() for t in flat)
+    weight_bytes = _tree_bytes(params)
+    moment_bytes = _tree_bytes(state["m"]) + _tree_bytes(state["v"])
+    step = make_train_step(cfg, opt)
+    before = {k: t.clone() for k, t in _flatten(params).items()}
+    losses, step_ms, unmoved = [], [], None
+    for i in range(TRAIN_STEPS):
+        batch = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, dev, i)
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, batch)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            unmoved = _unmoved(before, params, state,
+                               TRAIN_LR / TRAIN_WARMUP,
+                               opt.opt.weight_decay)
+            del before
+            step1_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+    norms = [float(n) for n in opt.norms]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(map(math.isfinite, losses + norms)):
+        raise AssertionError(f"lm_train: non-finite loss or gradient norm: "
+                             f"{losses}, {norms}")
+    if unmoved["other"]:
+        raise AssertionError(f"lm_train: parameter leaves unchanged after "
+                             f"step 1: {unmoved}")
+    warm_ms = float(np.median(step_ms[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flop_bound_ms = 6 * n_params * tokens / PEAK_BF16_FLOPS * 1e3
+    opt_bound_ms = ADAMW_BYTES_PER_PARAM * n_params / PEAK_BYTES * 1e3
+
+    batch = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, dev, TRAIN_STEPS)
+    breakdown = _step_breakdown(cfg, params, state, opt.opt, batch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    graph = _capture_train_step(lambda: step(params, state, batch)[2])
+    graph_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params, state, opt, step, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": TRAIN_ARCH,
+            "config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                       "n_heads": cfg.n_heads, "d_ff": cfg.d_ff,
+                       "vocab": cfg.vocab, "dtype": cfg.dtype,
+                       "optimizer_state_dtype": "float32"},
+            "n_params": n_params, "leaves": n_leaves, "init_s": init_s,
+            "leaves_unchanged_after_step_1": unmoved,
+            "weight_gb": weight_bytes / 1e9, "grad_gb": weight_bytes / 1e9,
+            "moment_gb": moment_bytes / 1e9,
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "lr": TRAIN_LR,
+            "warmup_steps": TRAIN_WARMUP, "losses": losses,
+            "global_norms": norms, "step_ms": step_ms,
+            "step_ms_warm_median": warm_ms,
+            "tokens_per_s": tokens / warm_ms * 1e3,
+            "peak_mem_gb_step_1": step1_peak_gb, "peak_mem_gb": peak_gb,
+            "peak_mem_gb_graph": graph_peak_gb,
+            "flop_bound_ms": flop_bound_ms,
+            "optimizer_bytes_bound_ms": opt_bound_ms,
+            "flop_bound_share": flop_bound_ms / warm_ms,
+            "step_breakdown_ms": breakdown, "graph": graph}
+
+
+def _train_trainer(dev) -> dict:
+    """``Trainer`` on the card at stablelm's REDUCED config, checkpoints
+    in a temporary directory: TRAINER_STEPS steps must lower the mean of
+    the last 5 losses below the first 5 by TRAINER_DROP; the restored
+    bf16 parameters equal the returned ones bit for bit; a resume to
+    TRAINER_RESUME_TO runs only the remaining steps; one run each with
+    microbatches=2 and with int8 compression has finite losses."""
+    import os
+    import tempfile
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.models.model import init_params
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.train.tree import leaves
+
+    cfg = reduced_config(TRAIN_ARCH)
+    pipe = TokenPipeline(PipelineConfig(vocab=cfg.vocab, seq_len=16,
+                                        global_batch=8, seed=0))
+
+    def fresh():
+        return init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+
+    def trainer(d: str, total: int, **kw):
+        tcfg = TrainerConfig(total_steps=total, ckpt_every=10, ckpt_dir=d,
+                             log_every=100, **kw)
+        return Trainer(cfg, tcfg, AdamW(lr=2e-3, warmup_steps=5))
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    out = {"config": cfg.name}
+    with tempfile.TemporaryDirectory() as tmp:
+        run = os.path.join(tmp, "run")
+        tr = trainer(run, TRAINER_STEPS)
+        t0 = time.perf_counter()
+        params, _, losses = tr.run(fresh(), pipe, resume=False)
+        out["run_s"] = time.perf_counter() - t0
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        if not (all(map(math.isfinite, losses))
+                and last < first - TRAINER_DROP):
+            raise AssertionError(f"lm_train: the trainer's loss did not "
+                                 f"drop by {TRAINER_DROP}: {losses}")
+        saved_step, saved = tr.ckpt.restore(device=dev)
+        same = all(torch.equal(bits(a), bits(b)) for a, b in
+                   zip(leaves(saved["params"]), leaves(params)))
+        if saved_step != TRAINER_STEPS or not same:
+            raise AssertionError(f"lm_train: restored step {saved_step}, "
+                                 f"bitwise equal {same}")
+        out["checkpoints"] = tr.ckpt.steps()
+        tr2 = trainer(run, TRAINER_RESUME_TO)
+        _, st2, losses2 = tr2.run(fresh(), pipe, resume=True)
+        if len(losses2) > 6 or int(st2["step"]) != TRAINER_RESUME_TO:
+            raise AssertionError(f"lm_train: the resume ran {len(losses2)} "
+                                 f"steps to {int(st2['step'])}")
+        out.update(losses=losses, first5=first, last5=last,
+                   resumed_steps=len(losses2),
+                   restored_bitwise=same,
+                   step_ms_median=float(np.median(tr.step_times)) * 1e3,
+                   stragglers=tr.stragglers)
+        for name, kw in (("microbatches_2", {"microbatches": 2}),
+                         ("grad_compression", {"grad_compression": True})):
+            trx = trainer(os.path.join(tmp, name), TRAINER_EXTRA_STEPS, **kw)
+            _, _, lx = trx.run(fresh(), pipe, resume=False)
+            if len(lx) != TRAINER_EXTRA_STEPS or not all(
+                    map(math.isfinite, lx)):
+                raise AssertionError(f"lm_train: {name} losses {lx}")
+            out[name] = lx
+    return out
+
+
+def _train_zoo_arch(arch: str, cut, dev) -> dict:
+    """One ``make_train_step`` step of ``arch`` in bf16 on the card (full
+    width cut to ``cut`` layers, uncut, or REDUCED), with the AdamW state
+    dtype of its full config: the loss and the gradients' global norm
+    finite (the norm is finite only if every gradient element is); then
+    its float32 REDUCED copy card against CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models.model import init_params
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.train.optimizer import AdamW
+
+    full = get_config(arch)
+    cfg = (reduced_config(arch) if cut == "reduced" else
+           dataclasses.replace(full, n_layers=cut) if cut else full)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    opt = NormRecorder(AdamW(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                             state_dtype=full.optimizer_state_dtype))
+    state = opt.init(params)
+    batch = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, dev)
+    weight_gb = _tree_bytes(params) / 1e9
+    n_params = _tree_sum(lambda t: t.numel(), params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, loss = make_train_step(cfg, opt)(params, state, batch)
+    loss, norm = float(loss), float(opt.norms[0])
+    step_ms = (time.perf_counter() - t0) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params, state, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (math.isfinite(loss) and math.isfinite(norm)):
+        raise AssertionError(f"lm_train: {arch} loss {loss}, norm {norm}")
+    f32 = _grads_card_vs_cpu(dataclasses.replace(reduced_config(arch),
+                                                 dtype="float32"), dev)
+    return {"arch": arch, "layers": cfg.n_layers,
+            "layers_full": full.n_layers, "d_model": cfg.d_model,
+            "reduced": cut == "reduced", "n_params": n_params,
+            "weight_gb": weight_gb,
+            "optimizer_state_dtype": full.optimizer_state_dtype,
+            "loss": loss, "global_norm": norm,
+            "first_step_ms": step_ms, "peak_mem_gb": peak_gb,
+            "f32_reduced_card_vs_cpu": f32}
+
+
+def phase_lm_train(smi: str, native) -> dict:
+    """The LM zoo's training path on the card: stablelm-3b at full width
+    (TRAIN_STEPS steps, timed, and one step in a CUDA graph), its float32
+    2-layer cut card against CPU, the ``Trainer`` at REDUCED, and one
+    train step of every other architecture (TRAIN_ZOO).  One JSON line
+    each and one for the phase.  Gates: in the docstrings of the parts;
+    none falls back.  The FHE kernels' launches during the phase are
+    counted: the training path reaches none of them."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    launches0 = dict(native.LAUNCHES)
+    t0 = time.perf_counter()
+    full = _train_full_width(smi, dev)
+    emit({"phase": "lm_train", "part": "full_width", "card": smi, **full,
+          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    cut = _grads_card_vs_cpu(dataclasses.replace(
+        get_config(TRAIN_ARCH), dtype="float32", n_layers=TRAIN_F32_LAYERS),
+        dev)
+    emit({"phase": "lm_train", "part": "f32_card_vs_cpu", "arch": TRAIN_ARCH,
+          **cut, "tol": TRAIN_F32_TOL, "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    tr = _train_trainer(dev)
+    emit({"phase": "lm_train", "part": "trainer", **tr,
+          "seconds": time.perf_counter() - t0})
+    rows = []
+    for arch, layers in TRAIN_ZOO:
+        t0 = time.perf_counter()
+        r = _train_zoo_arch(arch, layers, dev)
+        r["seconds"] = time.perf_counter() - t0
+        emit({"phase": "lm_train", "part": "zoo", **r})
+        rows.append({k: r[k] for k in ("arch", "layers", "weight_gb", "loss",
+                                       "first_step_ms", "peak_mem_gb",
+                                       "seconds")})
+    launches = {k: native.LAUNCHES[k] - launches0[k] for k in launches0}
+    res = {"phase": "lm_train", "card": smi,
+           "full_width": {k: full[k] for k in (
+               "n_params", "step_ms_warm_median", "tokens_per_s",
+               "peak_mem_gb", "flop_bound_ms", "optimizer_bytes_bound_ms",
+               "step_breakdown_ms")},
+           "graph": full["graph"], "trainer_drop": tr["first5"] - tr["last5"],
+           "zoo": rows, "fhe_kernel_launches": launches,
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2168,6 +2684,7 @@ def main() -> int:
     # by Python dispatch, which the FHE phases' heap would slow down
     phase_lm_serve(smi)
     phase_lm_zoo(smi)
+    phase_lm_train(smi, native)
     dist_res = phase_distributed(native)
     kern = phase_kernels(PAPER_PARAMS, native)
     main_res = phase_main(PAPER_PARAMS, native)

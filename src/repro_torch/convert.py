@@ -5,10 +5,10 @@ Functions here take and return numpy arrays and plain numbers
 layer); none imports the JAX package, so the port still imports nothing
 of it.
 Residues cross as uint64 (the JAX package's dtype) and live in the port
-as int64.  LM parameters and decode caches cross as nested dicts and
-lists of numpy arrays (the JAX package's pytrees); bf16 arrays arrive
-with numpy's ``bfloat16`` extension dtype and are reinterpreted bit for
-bit, and leave as float32 (exact).
+as int64.  LM parameters, decode caches and AdamW states cross as
+nested dicts and lists of numpy arrays (the JAX package's pytrees);
+bf16 arrays arrive with numpy's ``bfloat16`` extension dtype and are
+reinterpreted bit for bit, and leave as float32 (exact).
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ from repro_torch.core.ckks import Ciphertext, Plaintext
 from repro_torch.core.keys import EvalKey, KeyChain
 from repro_torch.core.poly import PolyContext, resolve_device
 from repro_torch.models.model import layer_pattern
+from repro_torch.train.tree import tree_map
 from repro_torch.workloads.models import (
     Activation, Dense, Workload, scaled_tanh, sigmoid4,
 )
@@ -161,14 +162,6 @@ def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
 def lm_params_from_numpy(cfg, tree, device="cuda") -> dict:
     """The JAX package's ``init_params(cfg)`` pytree, as numpy arrays ->
     the port's parameters on ``device``.
@@ -185,9 +178,9 @@ def lm_params_from_numpy(cfg, tree, device="cuda") -> dict:
     if len(tree["blocks"]) != len(pattern):
         raise ValueError(f"{cfg.name}: {len(tree['blocks'])} block slots, "
                          f"the pattern has {len(pattern)}")
-    out = _tree_map(lambda a: _leaf_from_numpy(a, device), tree)
+    out = tree_map(lambda a: _leaf_from_numpy(a, device), tree)
     for slot in out["blocks"]:
-        _tree_map(lambda t: _check_reps(t, reps, cfg), slot)
+        tree_map(lambda t: _check_reps(t, reps, cfg), slot)
     return out
 
 
@@ -199,7 +192,7 @@ def _check_reps(t, reps: int, cfg) -> None:
 
 def lm_params_to_numpy(params) -> dict:
     """The port's parameters as numpy (bf16 as float32)."""
-    return _tree_map(_leaf_to_numpy, params)
+    return tree_map(_leaf_to_numpy, params)
 
 
 def lm_cache_from_numpy(cfg, cache, device="cuda") -> dict:
@@ -208,7 +201,7 @@ def lm_cache_from_numpy(cfg, cache, device="cuda") -> dict:
     its own dtype (the float32 states ``ssm``, ``C``, ``n`` and the
     sLSTM's ``c`` stay float32), with ``idx`` as an int."""
     device = resolve_device(device)
-    return {"slots": _tree_map(lambda a: _leaf_from_numpy(a, device),
+    return {"slots": tree_map(lambda a: _leaf_from_numpy(a, device),
                                cache["slots"]),
             "idx": int(np.asarray(cache["idx"]))}
 
@@ -216,5 +209,27 @@ def lm_cache_from_numpy(cfg, cache, device="cuda") -> dict:
 def lm_cache_to_numpy(cache) -> dict:
     """The port's decode cache as numpy (bf16 as float32, ``idx`` an
     int32 scalar array, as the JAX package keeps it)."""
-    return {"slots": _tree_map(_leaf_to_numpy, cache["slots"]),
+    return {"slots": tree_map(_leaf_to_numpy, cache["slots"]),
             "idx": np.asarray(cache["idx"], dtype=np.int32)}
+
+
+def lm_opt_state_from_numpy(state, device="cuda") -> dict:
+    """The JAX package's AdamW state (``m`` and ``v`` trees and the
+    int32 ``step``), as numpy arrays -> the port's, on ``device``, each
+    leaf in its own dtype (bf16 moments stay bf16, bit for bit) and
+    ``step`` an int32 scalar tensor."""
+    device = resolve_device(device)
+    return {"m": tree_map(lambda a: _leaf_from_numpy(a, device),
+                           state["m"]),
+            "v": tree_map(lambda a: _leaf_from_numpy(a, device),
+                           state["v"]),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device)}
+
+
+def lm_opt_state_to_numpy(state) -> dict:
+    """The port's AdamW state as numpy (bf16 moments as float32, exact;
+    ``step`` an int32 scalar array, as the JAX package keeps it)."""
+    return {"m": tree_map(_leaf_to_numpy, state["m"]),
+            "v": tree_map(_leaf_to_numpy, state["v"]),
+            "step": np.asarray(int(state["step"]), dtype=np.int32)}

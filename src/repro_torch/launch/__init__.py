@@ -1,1 +1,2 @@
-"""Command-line entry points of the port's LM serving path."""
+"""Command-line entry points of the port's LM serving and training
+paths."""

@@ -7,9 +7,9 @@ of slots (period 1 for a homogeneous stack, 8 for jamba's and xlstm's
 interleaves), and ``params["blocks"][s]`` holds slot ``s`` of every
 repetition stacked on a leading axis, so layer ``r * len(pattern) + s``
 is ``params["blocks"][s][...][r]``.  The reference scans over that
-axis; here a Python loop indexes it (a view, no copy).  Whisper's
-encoder layers and the decoder's cross-attentions are lists, one entry a
-layer, as there.
+axis; here a Python loop runs over its ``unbind`` (views, no copy).
+Whisper's encoder layers and the decoder's cross-attentions are lists,
+one entry a layer, as there.
 
 Entry points take an explicit ``device`` (the card by default; asking
 for it without one raises) and an explicit ``torch.Generator``.
@@ -199,6 +199,18 @@ def _at(tree, r: int):
     return tree[r]
 
 
+def _unstack(tree, reps: int) -> list:
+    """Every repetition of a stacked pytree, as views: one ``unbind`` a
+    leaf, whose backward stacks the layers' gradients once.  Indexing
+    the leaf once a layer (``_at``) would give each layer's backward a
+    zero-filled gradient of the whole stack to add: reps times the
+    leaf's bytes, for every leaf."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, reps) for k, v in tree.items()}
+        return [{k: parts[k][r] for k in tree} for r in range(reps)]
+    return tree.unbind(0)
+
+
 def _apply_layer(p, x, cfg, spec: LayerSpec, pos, cache, window):
     """One layer: ``cache`` is this layer's slot cache with ``idx``, or
     None for a full pass.  A decode step updates the cache in place."""
@@ -269,9 +281,10 @@ def forward(params, tokens, cfg: ModelConfig, positions=None, cache=None,
 
     pattern, reps = layer_pattern(cfg)
     window = _active_window(cfg, pattern, cache, S)
+    layers = [_unstack(slot, reps) for slot in params["blocks"]]
     for r in range(reps):
         for s, spec in enumerate(pattern):
-            x = _apply_layer(_at(params["blocks"][s], r), x, cfg, spec,
+            x = _apply_layer(layers[s][r], x, cfg, spec,
                              positions, _layer_cache(cache, s, r, idx),
                              window if spec.mixer == "attn" else 0)
     new_cache = None
@@ -332,8 +345,9 @@ def _forward_encdec(params, tokens, cfg, cache, embeds):
             else torch.full((1,), idx, device=dev))
     x = x + _sinusoid(pos0, cfg.d_model, dtype)[None]
     pattern, _ = layer_pattern(cfg)
+    layers = _unstack(params["blocks"][0], cfg.n_layers)
     for i in range(cfg.n_layers):
-        x = _apply_layer(_at(params["blocks"][0], i), x, cfg, pattern[0],
+        x = _apply_layer(layers[i], x, cfg, pattern[0],
                          None, _layer_cache(cache, 0, i, idx), 0)
         # cross-attention to the encoder's output
         cp = params["cross"][i]

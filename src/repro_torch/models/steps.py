@@ -1,9 +1,15 @@
-"""Serve-step builders: one decode step, one prefill.
+"""Train- and serve-step builders.
 
-Counterpart of ``make_serve_step`` and ``make_prefill_step`` of the JAX
-package's ``models/steps.py``.  ``loss_fn`` and ``make_train_step`` wait
-for the training slice (ROADMAP A6h); the dry-run's input specs are not
-ported.
+Counterpart of ``loss_fn``, ``make_train_step``, ``make_serve_step`` and
+``make_prefill_step`` of the JAX package's ``models/steps.py``; the
+dry-run's input specs are not ported.
+
+Gradients come from plain autograd, where the reference takes
+``jax.value_and_grad``: ``value_and_grad`` marks the parameter leaves
+``requires_grad`` for one forward and ``torch.autograd.grad``, and then
+restores their flags.  Each gradient keeps its leaf's dtype (bf16 for a
+bf16 leaf, float32 for the float32 router, ``A_log``, ``D``, ``dt_bias``
+and ``wif``), as the reference's do.
 """
 from __future__ import annotations
 
@@ -11,6 +17,64 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import forward
+from repro_torch.train.tree import leaves, unflatten_like
+
+
+def loss_fn(params, batch, cfg: ModelConfig):
+    """Mean next-token cross-entropy over the positions whose label is
+    >= 0, as a float32 scalar tensor.  ``cfg.ce_impl`` picks the full
+    log-softmax (``"softmax"``) or logsumexp and a gather (``"gather"``),
+    as in the reference."""
+    logits, _ = forward(
+        params, batch["tokens"], cfg,
+        positions=batch.get("positions"),
+        embeds=batch.get("embeds"),
+    )
+    labels = batch["labels"].long()
+    # a masked label (< 0) picks column 0; its term is multiplied by 0
+    picked_at = labels.clamp_min(0)[..., None]
+    if cfg.ce_impl == "softmax":      # baseline: full (B,S,V) log-softmax
+        logp = torch.log_softmax(logits, -1)
+        ll = logp.gather(-1, picked_at)[..., 0]
+    else:
+        # logsumexp + gather: no (B, S, V) log-softmax array
+        lse = torch.logsumexp(logits, -1)
+        ll = logits.gather(-1, picked_at)[..., 0] - lse
+    mask = (labels >= 0).float()
+    return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+def value_and_grad(params, batch, cfg: ModelConfig):
+    """(loss, grads): ``loss_fn`` and its gradient with respect to every
+    parameter leaf, a tree of ``params``' structure (zeros for a leaf
+    the loss does not reach)."""
+    flat = leaves(params)
+    flags = [t.requires_grad for t in flat]
+    for t in flat:
+        t.requires_grad_(True)
+    try:
+        with torch.enable_grad():
+            loss = loss_fn(params, batch, cfg)
+            grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    finally:
+        for t, flag in zip(flat, flags):
+            t.requires_grad_(flag)
+    grads = [torch.zeros_like(t) if g is None else g
+             for t, g in zip(flat, grads)]
+    return loss.detach(), unflatten_like(params, grads)
+
+
+def make_train_step(cfg: ModelConfig, optimizer):
+    """optimizer: ``repro_torch.train.optimizer.AdamW``-like (init /
+    update).  The step updates ``params`` and ``opt_state`` in place and
+    returns them with the loss (a float32 scalar tensor)."""
+
+    def train_step(params, opt_state, batch):
+        loss, grads = value_and_grad(params, batch, cfg)
+        params, opt_state = optimizer.update(params, grads, opt_state)
+        return params, opt_state, loss
+
+    return train_step
 
 
 def make_serve_step(cfg: ModelConfig):

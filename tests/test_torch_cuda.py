@@ -461,3 +461,78 @@ def test_cuda_lm_zoo_forward_equals_cpu(cuda, arch):
 
     assert max(float((a.cpu() - b).abs().max()) for a, b in
                zip(leaves(c_card["slots"]), leaves(c_cpu["slots"]))) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", [
+    "stablelm_3b", "minicpm3_4b", "phi3_medium_14b", "command_r_35b",
+    "arctic_480b", "moonshot_v1_16b_a3b", "jamba_1_5_large_398b",
+    "qwen2_vl_2b", "xlstm_1_3b", "whisper_base"])
+def test_cuda_train_step_equals_cpu(cuda, arch):
+    """One ``make_train_step`` step of each architecture at its reduced
+    config in float32 (TF32 off), from the same weights and batch on the
+    card and on the CPU: the loss and every gradient leaf within 1e-4 of
+    the leaf's scale (its max magnitude, floored at 1e-3 of the tree's
+    largest: a gradient zero in exact arithmetic is rounding noise), and
+    the updated weights within 2 x lr (Adam's first step is nearly
+    ``lr * sign(g)``)."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.models.model import init_params
+    from repro_torch.models.steps import make_train_step, value_and_grad
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.tree import leaves, tree_map
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(reduced_config(arch), dtype="float32")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    p_cpu = tree_map(lambda t: t.cpu(), params)
+    batch = {k: torch.from_numpy(v) for k, v in TokenPipeline(PipelineConfig(
+        vocab=cfg.vocab, seq_len=16, global_batch=2)).batch_at(0).items()}
+    loss_cpu, g_cpu = value_and_grad(p_cpu, batch, cfg)
+    loss, g = value_and_grad(params, {k: v.to(cuda)
+                                      for k, v in batch.items()}, cfg)
+    assert abs(float(loss) - float(loss_cpu)) <= 1e-4 * float(loss_cpu)
+    flat_cpu = leaves(g_cpu)
+    top = max(float(t.abs().max()) for t in flat_cpu)
+    for a, b in zip(leaves(g), flat_cpu):
+        scale = max(float(b.abs().max()), 1e-3 * top)
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * scale
+    lr = 1e-2
+    opt = AdamW(lr=lr, warmup_steps=1)
+    step = make_train_step(cfg, opt)
+    step(params, opt.init(params), {k: v.to(cuda) for k, v in batch.items()})
+    step(p_cpu, opt.init(p_cpu), batch)
+    for a, b in zip(leaves(params), leaves(p_cpu)):
+        assert float((a.cpu() - b).abs().max()) <= 2 * lr
+
+
+@pytest.mark.cuda
+def test_cuda_trainer_lowers_loss_and_resumes(cuda, tmp_path):
+    """tests/test_train.py's end-to-end case on the card: 30 steps at
+    stablelm's reduced config lower the loss by 0.1, and a resume runs
+    only the remaining steps."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.models.model import init_params
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = reduced_config("stablelm_3b")
+    pipe = TokenPipeline(PipelineConfig(vocab=cfg.vocab, seq_len=16,
+                                        global_batch=8, seed=0))
+
+    def run(total: int, resume: bool):
+        tcfg = TrainerConfig(total_steps=total, ckpt_every=10,
+                             ckpt_dir=str(tmp_path), log_every=100)
+        params = init_params(cfg, torch.Generator(device=cuda)
+                             .manual_seed(0), cuda)
+        tr = Trainer(cfg, tcfg, AdamW(lr=2e-3, warmup_steps=5))
+        return tr.run(params, pipe, resume=resume)[2]
+
+    losses = run(30, False)
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.1
+    assert len(run(35, True)) == 5
