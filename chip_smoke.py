@@ -4,12 +4,24 @@ keyswitch and its LM serving and training paths once on an H100.
     python3 chip_smoke.py
 
 Phases, each printing one JSON line (any mismatch raises, so the script
-exits non-zero); phases 9, 10, 11 and 8 run right after the build, in
-a fresh process, the others in the order below:
+exits non-zero); after the build and the dry run come phases 9, 10, 11
+and 8, in a fresh process, then the others in the order below:
 
   1. build   compile the four CUDA kernels from ``src/repro_torch/csrc``
              (one nvcc per source, in parallel); print the card's name
              and power limit;
+     dryrun  the LM dry run (``launch/dryrun``) of every architecture's
+             train_4k and decode_32k on a simulated (16, 16) mesh of 256
+             H100s (a ``fake`` process group, ``"cuda"`` DTensors of fake
+             tensors: no card memory), each cell in a process of its
+             own, DRYRUN_WORKERS at a time, jamba's and xlstm's train
+             cut in depth (DRYRUN_LAYERS); one line a cell (status,
+             parameter and state GB a device against the card's memory,
+             FLOPs and bytes a device, collective GB by kind, the forced
+             redistributions, and ``launch/roofline``'s three terms with
+             the dominant one: counts priced at the datasheet's figures,
+             not times on this card), then the phase's seconds.  Gate:
+             every cell ok;
   2. kernels each kernel at the paper shapes (logN=16, level 35: l=36,
              k=12, l_ext=48, dnum=3, alpha=12) against its plain PyTorch
              version on the same inputs, exact integer equality; median
@@ -271,6 +283,17 @@ SERVE_BOOT_KW = dict(logN=8, L=19, alpha=4, k=4, q_bits=29, scale_bits=29,
 SERVE_BOOT_CTX = dict(seed=7, hamming_weight=8)
 SERVE_BOOT_BTP = dict(n_groups=2, mod_K=3, cheb_degree=27)
 SERVE_BOOT_LEVEL = 7
+# The dry-run phase: processes at a time (the machine's cores), and the
+# two train_4k cells cut in depth.  Mamba and sLSTM layers scan the 4096
+# tokens one at a time, a few DTensor ops a token forward and more
+# backward: on one CPU core jamba's first 8 layers took 188 s and
+# xlstm's 276 s (its eighth is the sLSTM), and the whole depth many
+# minutes (PERF.md, the sweep).  So jamba keeps its first 2 layers (Mamba
+# with MoE, Mamba with the dense FFN) and xlstm its first 7 (mLSTM);
+# their decode cells run whole, the sLSTM's step included
+DRYRUN_WORKERS = 8
+DRYRUN_LAYERS = {("jamba_1_5_large_398b", "train_4k"): 2,
+                 ("xlstm_1_3b", "train_4k"): 7}
 
 
 def emit(obj) -> None:
@@ -375,6 +398,78 @@ def phase_build(native) -> str:
                                for k, v in report.items()},
           "sms": sms, "max_sm_clock_mhz": clock_mhz, "peak_ops": PEAK_OPS})
     return smi
+
+
+# ------------------------------------------------------------ dry run
+def _dryrun_cells() -> list[tuple[str, str, int | None]]:
+    """(arch, shape, layers) of the phase: every architecture's train_4k
+    and decode_32k; None runs the whole depth."""
+    from repro_torch.configs import ARCHS
+
+    return [(a, s, DRYRUN_LAYERS.get((a, s))) for a in ARCHS
+            for s in ("train_4k", "decode_32k")]
+
+
+def phase_dryrun(smi: str, device: str = "cuda") -> dict:
+    """The LM dry run (``launch/dryrun``) on a simulated (16, 16) mesh of
+    256 H100s over a fake process group on ``"cuda"``: each cell in a
+    process of its own, DRYRUN_WORKERS at a time, then priced by
+    ``launch/roofline``.  Gate: every cell ok.  One line a cell: its
+    counts and their roofline terms, which are counts priced at the H100
+    datasheet's figures, not times measured on this card."""
+    from repro_torch.launch import dryrun, roofline
+
+    t0 = time.perf_counter()
+    cells = _dryrun_cells()
+    done = dryrun.run_cells([(a, sh, "single", n) for a, sh, n in cells],
+                            workers=DRYRUN_WORKERS, device=device,
+                            force=True)
+    card_gb = (torch.cuda.get_device_properties(0).total_memory / 1e9
+               if device == "cuda" else None)
+    rows, failed = [], []
+    for arch, shape, layers in cells:
+        rc, log = done[(arch, shape, "single", layers)]
+        path = dryrun.RESULTS / f"{arch}__{shape}__single.json"
+        if rc != 0 or not path.exists():
+            failed.append((arch, shape, rc, log[-1500:]))
+            continue
+        r = json.loads(path.read_text())
+        a = roofline.analyze_cell(r)
+        coll = r["collectives"]
+        row = {"phase": "dryrun_cell", "arch": arch, "shape": shape,
+               "status": r["status"], "n_chips": r["n_chips"],
+               "layers_run": r["layers_run"], "layers": r["layers"],
+               "param_gb_per_device": r["param_bytes_per_device"] / 1e9,
+               "state_gb_per_device": r["state_bytes_per_device"] / 1e9,
+               "card_gb": card_gb,
+               "flops_per_device": r["hlo_flops"],
+               "bytes_per_device": r["hlo_bytes"],
+               "collective_gb": {k: v / 1e9
+                                 for k, v in coll["bytes"].items()},
+               "forced_redistributions": {
+                   f"{f['op']} -> {f['action']}": f["count"]
+                   for f in r["forced_redistributions"]},
+               **{k: a[k] for k in ("t_compute_s", "t_memory_s",
+                                    "t_collective_s", "dominant")},
+               "priced_at": roofline.CARD, "card": smi,
+               "run_s": r["lower_s"]}
+        emit(row)
+        rows.append(row)
+        if r["status"] != "ok":
+            failed.append((arch, shape, r["status"], ""))
+    res = {"phase": "dryrun", "cells": len(cells), "ok": len(rows),
+           "torch": torch.__version__,
+           "mesh": f"single (16, 16), fake process group, {device}",
+           "workers": DRYRUN_WORKERS,
+           "seconds": time.perf_counter() - t0,
+           "failed": [f[:3] for f in failed]}
+    emit(res)
+    if failed:
+        for f in failed:
+            print(f"dryrun FAILED {f[0]} x {f[1]}: {f[3]}", file=sys.stderr)
+        raise RuntimeError(f"dryrun: {len(failed)} of {len(cells)} cells "
+                           "failed")
+    return res
 
 
 # ------------------------------------------------------------------ phase 2
@@ -2680,6 +2775,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     smi = phase_build(native)
+    phase_dryrun(smi)
     # the LM paths first, in a fresh process: their decode steps are bound
     # by Python dispatch, which the FHE phases' heap would slow down
     phase_lm_serve(smi)

@@ -2,8 +2,8 @@
 
 The port's own copy of the JAX package's ``configs/`` (the schema and
 the ten architectures' ``CONFIG`` and ``REDUCED``), so that the port
-imports nothing of that package.  ``shapes.py`` (the dry-run's input
-shapes) is not copied: the dry-run is not ported.
+imports nothing of that package; ``shapes.py`` holds the dry run's
+input shapes.
 """
 from repro_torch.configs.base import ModelConfig, MoEConfig, MLAConfig  # noqa: F401
 

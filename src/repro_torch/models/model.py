@@ -379,3 +379,84 @@ def _cross_attention(p, x, enc, cfg):
     mask = torch.ones((B, S, Ta), dtype=torch.bool, device=x.device)
     out = L._sdpa(q, k, v, mask)
     return out.reshape(B, S, H * hd) @ p["wo"]
+
+
+# --------------------------- sharding specs --------------------------------
+
+def param_specs(cfg: ModelConfig, params=None):
+    """Sharding spec tree mirroring ``init_params``: the JAX package's
+    ``param_specs`` with each ``PartitionSpec`` as a plain tuple whose
+    entries are ``None`` or a mesh axis name, one entry a dimension.
+
+    'model' = tensor/expert parallel, 'data' = FSDP when cfg.fsdp.
+    Stacked blocks get a leading None (rep) axis.  ``params`` only lends
+    its leaves' ``ndim`` (shape-only trees from
+    ``models.steps.param_shapes`` will do); by default that tree is
+    built for ``cfg``.
+    """
+    f = "data" if cfg.fsdp else None
+
+    def spec_for(path: str, ndim: int, stacked: bool):
+        lead = (None,) if stacked else ()
+        name = path.split("/")[-1]
+        table = {
+            "wq": (*lead, f, "model"), "wk": (*lead, f, "model"),
+            "wv": (*lead, f, "model"), "wo": (*lead, "model", f),
+            "bq": (*lead, "model"), "bk": (*lead, "model"),
+            "bv": (*lead, "model"),
+            "wq_a": (*lead, f, None), "wq_b": (*lead, None, "model"),
+            "wkv_a": (*lead, f, None), "wkv_b": (*lead, None, "model"),
+            "up": (*lead, f, "model"), "gate": (*lead, f, "model"),
+            "down": (*lead, "model", f),
+            "b_up": (*lead, "model"), "b_down": (*lead, None),
+            "router": (*lead, None, None),
+            "in_proj": (*lead, f, "model"),
+            "conv_w": (*lead, None, "model"),
+            "x_proj": (*lead, "model", None),
+            "out_proj": (*lead, "model", f),
+            "A_log": (*lead, "model", None), "D": (*lead, "model"),
+            "dt_bias": (*lead, "model"),
+            "w": (*lead, None) if ndim == 1 + len(lead)
+            else (*lead, f, "model"),
+            "r": (*lead, f, "model"),
+            "b": (*lead, None),
+            "q_norm": (*lead, None), "kv_norm": (*lead, None),
+            "wif": (*lead, "model", None),
+        }
+        # MoE expert tensors carry a leading expert axis -> expert-parallel
+        if name in ("up", "gate", "down") and ndim == 3 + len(lead):
+            if cfg.expert_shard == "ff" and f:
+                # FSDP axis on the expert HIDDEN dim: the dispatch product
+                # contracts an unsharded d_model
+                return {"up": (*lead, "model", None, f),
+                        "gate": (*lead, "model", None, f),
+                        "down": (*lead, "model", f, None)}[name]
+            return {"up": (*lead, "model", f, None),
+                    "gate": (*lead, "model", f, None),
+                    "down": (*lead, "model", None, f)}[name]
+        return table.get(name, (*lead, *([None] * (ndim - len(lead)))))
+
+    if params is None:
+        from repro_torch.models.steps import param_shapes
+
+        params = param_shapes(cfg, device="cpu")
+
+    def walk(tree, stacked, prefix=""):
+        if isinstance(tree, dict):
+            return {k: walk(v, stacked, f"{prefix}/{k}") for k, v in
+                    tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, stacked, prefix) for v in tree]
+        return spec_for(prefix, tree.ndim, stacked)
+
+    out = {}
+    for k, v in params.items():
+        if k == "embed":
+            out[k] = ("model", None)
+        elif k == "lm_head":
+            out[k] = (None, "model")
+        elif k == "blocks":
+            out[k] = [walk(b, True) for b in v]
+        else:
+            out[k] = walk(v, False)
+    return out

@@ -1,8 +1,11 @@
 """Train- and serve-step builders.
 
 Counterpart of ``loss_fn``, ``make_train_step``, ``make_serve_step`` and
-``make_prefill_step`` of the JAX package's ``models/steps.py``; the
-dry-run's input specs are not ported.
+``make_prefill_step`` of the JAX package's ``models/steps.py``, and of
+the dry run's shape-only stand-ins (``input_specs``, ``cache_specs``,
+``param_shapes``): where the reference calls ``jax.eval_shape``, these
+build the same trees under a ``FakeTensorMode``, which allocates
+nothing.
 
 Gradients come from plain autograd, where the reference takes
 ``jax.value_and_grad``: ``value_and_grad`` marks the parameter leaves
@@ -14,9 +17,12 @@ and ``wif``), as the reference's do.
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
+from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import forward
+from repro_torch.configs.shapes import SHAPES, ShapeSpec
+from repro_torch.models.model import forward, init_cache, init_params
 from repro_torch.train.tree import leaves, unflatten_like
 
 
@@ -105,3 +111,65 @@ def make_prefill_step(cfg: ModelConfig):
         return logits[:, -1]
 
     return prefill_step
+
+
+# ------------------------- input specs (dry-run) --------------------------
+
+def batch_specs(cfg: ModelConfig, sh: ShapeSpec, device="cuda",
+                fake_mode: FakeTensorMode | None = None) -> dict:
+    """Shape-only batch of ``cfg`` at shape ``sh``: fake tensors of
+    ``fake_mode`` (a new one if None) on ``device``, with the
+    reference's shapes.  Tokens and labels of a training batch are
+    int32 (``data.pipeline``'s), the tokens of a prefill or decode step
+    int64 (``launch.serve``'s), M-RoPE positions int64 (what
+    ``forward`` builds itself), stub vision / audio embeds bf16."""
+    B, S = sh.global_batch, sh.seq_len
+    i32, i64 = torch.int32, torch.int64
+    with fake_mode or FakeTensorMode():
+        def sds(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device=device)
+
+        out: dict = {}
+        if sh.kind == "train":
+            out["tokens"] = sds((B, S), i32)
+            out["labels"] = sds((B, S), i32)
+        elif sh.kind == "prefill":
+            out["tokens"] = sds((B, S), i64)
+        else:  # decode: one new token against an S-long cache
+            out["tokens"] = sds((B, 1), i64)
+        if cfg.pos == "mrope":
+            ps = (B, S) if sh.kind != "decode" else (B, 1)
+            out["positions"] = sds((3,) + ps, i64)
+        if cfg.frontend == "vision" and sh.kind != "decode":
+            n_patch = min(256, S // 2)
+            out["embeds"] = sds((B, n_patch, cfg.d_model), torch.bfloat16)
+        if cfg.frontend == "audio":
+            t_audio = min(1500, S)
+            out["embeds"] = sds((B, t_audio, cfg.d_model), torch.bfloat16)
+    return out
+
+
+def input_specs(arch: str, shape_name: str, device="cuda",
+                fake_mode: FakeTensorMode | None = None) -> dict:
+    """Shape-only stand-ins for one (arch x shape) cell
+    (``batch_specs``)."""
+    return batch_specs(get_config(arch), SHAPES[shape_name], device,
+                       fake_mode)
+
+
+def cache_specs(arch: str, shape_name: str, device="cuda",
+                fake_mode: FakeTensorMode | None = None):
+    """Shape-only decode cache of one cell (``init_cache`` under a
+    fake mode)."""
+    cfg = get_config(arch)
+    sh = SHAPES[shape_name]
+    with fake_mode or FakeTensorMode():
+        return init_cache(cfg, sh.global_batch, sh.seq_len, device=device)
+
+
+def param_shapes(cfg: ModelConfig, device="cuda",
+                 fake_mode: FakeTensorMode | None = None):
+    """Shape-only parameter tree of ``cfg`` (``init_params`` under a
+    fake mode): the full width of any architecture in no memory."""
+    with fake_mode or FakeTensorMode():
+        return init_params(cfg, device=device)

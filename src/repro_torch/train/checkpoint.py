@@ -14,9 +14,11 @@ restores in the other:
 ``save`` copies every tensor to host numpy before its writer thread
 starts, so the caller may update its tensors in place at once.
 ``restore`` reads bf16 back through ``torch.int16`` -> ``torch.bfloat16``
-and places every leaf on ``device``: on one card, that is the
-counterpart of the reference's elastic re-shard onto a mesh
-(``shardings=``).
+and places every leaf on ``device``; with ``shardings`` (a tree of
+``launch.plan.ShardPlan``, as ``param_plan`` / ``opt_plan`` give them)
+it places each leaf it names as a DTensor on that plan's mesh: the
+reference's elastic re-shard, onto a mesh that may differ from the one
+that saved the checkpoint.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import time
 
 import numpy as np
 import torch
+from torch.distributed.tensor import distribute_tensor
 
 from repro_torch.core.poly import resolve_device
 
@@ -157,10 +160,17 @@ class CheckpointManager:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, step: int | None = None, device="cuda"):
+    def restore(self, step: int | None = None, device="cuda",
+                shardings=None):
         """Returns (step, state), every leaf a tensor on ``device`` in
         its saved dtype (a scalar as a 0-d tensor); (None, None) when
-        there is no complete checkpoint."""
+        there is no complete checkpoint.  A leaf that ``shardings``
+        names is a DTensor placed by its plan, on the plan's mesh's
+        device type; every rank reads the whole array and keeps its own
+        shard, so placing it moves no data between ranks."""
+        if shardings is not None:
+            device = next(iter(_flatten(shardings).values())) \
+                .mesh.device_type
         device = resolve_device(device)
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -173,6 +183,12 @@ class CheckpointManager:
             for k in data.files:
                 key = k.replace("|", "/")
                 flat[key] = _tensor(data[k], dtypes.get(key), device)
+        if shardings is not None:
+            plans = _flatten(shardings)
+            flat = {k: distribute_tensor(v, plans[k].mesh,
+                                         plans[k].placements,
+                                         src_data_rank=None)
+                    if k in plans else v for k, v in flat.items()}
         return step, _unflatten(flat)
 
 

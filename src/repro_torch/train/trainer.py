@@ -10,9 +10,10 @@ Counterpart of the JAX package's ``train/trainer.py``:
     zeros does
 
 The step is eager: the parameters and the optimizer state are updated
-in place (the reference donates them to its jitted step).  One card: the
-reference's ``mesh`` has no counterpart, and a resume places the
-checkpoint on the parameters' device.
+in place (the reference donates them to its jitted step).  ``mesh`` (a
+``DeviceMesh``, ``launch.mesh``) is kept for the caller, as the
+reference keeps its mesh; a resume places the checkpoint on the
+parameters' device.
 """
 from __future__ import annotations
 
@@ -49,11 +50,12 @@ class TrainerConfig:
 
 class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig,
-                 optimizer: AdamW | None = None):
+                 optimizer: AdamW | None = None, mesh=None):
         self.cfg = cfg
         self.tcfg = tcfg
         self.opt = optimizer or AdamW(
             state_dtype=cfg.optimizer_state_dtype)
+        self.mesh = mesh
         self.ckpt = CheckpointManager(tcfg.ckpt_dir)
         self._stop = False
         self.step_times: list[float] = []
