@@ -4,8 +4,8 @@ keyswitch and its LM serving and training paths once on an H100.
     python3 chip_smoke.py
 
 Phases, each printing one JSON line (any mismatch raises, so the script
-exits non-zero); after the build and the dry run come phases 9, 10, 11
-and 8, in a fresh process, then the others in the order below:
+exits non-zero); after the build and the dry run come phases 9, 10, 11,
+8 and 12, in a fresh process, then the others in the order below:
 
   1. build   compile the four CUDA kernels from ``src/repro_torch/csrc``
              (one nvcc per source, in parallel); print the card's name
@@ -20,8 +20,13 @@ and 8, in a fresh process, then the others in the order below:
              FLOPs and bytes a device, collective GB by kind, the forced
              redistributions, and ``launch/roofline``'s three terms with
              the dominant one: counts priced at the datasheet's figures,
-             not times on this card), then the phase's seconds.  Gate:
-             every cell ok;
+             not times on this card; the collective bytes by the op or
+             ``models/partition`` region that issued them; the torch
+             version and the card / CPU ratio of the FLOPs and the
+             collective bytes against tools/dryrun_cpu_counts.json),
+             then the phase's seconds.  Gates: every cell ok, and the
+             train_4k cells of stablelm, phi3 and command_r within
+             DRYRUN_CPU_RATIO of their CPU counts;
   2. kernels each kernel at the paper shapes (logN=16, level 35: l=36,
              k=12, l_ext=48, dnum=3, alpha=12) against its plain PyTorch
              version on the same inputs, exact integer equality; median
@@ -36,6 +41,12 @@ and 8, in a fresh process, then the others in the order below:
              residues, ModUp over all digits (``modup_all``); each
              kernel's bound from its bytes and its multiply results
              (the integer multiply rate at the card's maximum clock);
+             BConv also on an operand 8 bytes past a 16-byte boundary
+             (``bconv_unaligned``) and at ModDown of a dnum = 1 chain
+             (``bconv_dnum1``: logN=16, L=35, alpha = k = 36, so
+             (2, 36) -> (2, 36), past the kernel's chunk of 32 source
+             rows), after one multiply of that chain on the card whose
+             BConv calls at that shape are counted;
   3. main    ``CKKSContext(PAPER_PARAMS, device="cuda")``: encrypt two
              slot vectors, multiply (relin + rescale), rotate by 1 and 5,
              a hoisted rotation sum over 4 steps with plaintexts,
@@ -179,6 +190,14 @@ each (``bootstrap_kernels``), and
              its float32 REDUCED copy card against CPU as above.  The
              FHE kernels' launches in the phase are printed: none;
 
+ 12. examples
+             ``examples/torch_quickstart.py``, ``torch_serve_decode.py``
+             and ``torch_train_lm.py`` (its checkpoints in a temporary
+             directory), each in a process of its own on the card, with
+             their default settings; what each prints is printed.  Gate:
+             each exits 0, the quickstart's compiled runs bit-exact with
+             eager;
+
 then the kernels' summary line (launches on the main path and on the
 runtime, bootstrap, serve and distributed paths, a row per kernel at its
 logN=10 shape, and the fused IP at the distributed path's shape), and
@@ -294,6 +313,15 @@ SERVE_BOOT_LEVEL = 7
 DRYRUN_WORKERS = 8
 DRYRUN_LAYERS = {("jamba_1_5_large_398b", "train_4k"): 2,
                  ("xlstm_1_3b", "train_4k"): 7}
+# The same cells counted on the CPU (tools/dryrun_cpu_counts.py writes
+# the file, with the torch version that counted them).  The partitioned
+# blocks (models/partition.py) place every collective themselves, so the
+# counts should not depend on the torch version: these cells' FLOPs and
+# collective bytes must come within DRYRUN_CPU_RATIO of the CPU's
+DRYRUN_CPU = Path(__file__).resolve().parent / "tools" \
+    / "dryrun_cpu_counts.json"
+DRYRUN_GATED = ("stablelm_3b", "phi3_medium_14b", "command_r_35b")
+DRYRUN_CPU_RATIO = 1.25
 
 
 def emit(obj) -> None:
@@ -400,6 +428,44 @@ def phase_build(native) -> str:
     return smi
 
 
+# ----------------------------------------------------------- examples
+EXAMPLES = ("torch_quickstart.py", "torch_serve_decode.py",
+            "torch_train_lm.py")
+
+
+def phase_examples(smi: str) -> dict:
+    """Each of the port's examples in a process of its own on the card,
+    its output printed.  Gate: exit 0 and, in the quickstart, compiled
+    == eager bit for bit (steps 2 and 5)."""
+    import os
+    import tempfile
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    res = {"phase": "examples", "card": smi, "seconds": {}}
+    with tempfile.TemporaryDirectory() as ckpt:
+        for name in EXAMPLES:
+            argv = [sys.executable, str(root / "examples" / name)]
+            if name == "torch_train_lm.py":
+                argv += ["--ckpt-dir", ckpt]
+            t0 = time.perf_counter()
+            out = subprocess.run(argv, env=env, capture_output=True,
+                                 text=True, timeout=600)
+            res["seconds"][name] = time.perf_counter() - t0
+            print(f"--- {name} (exit {out.returncode}) ---\n"
+                  f"{out.stdout.rstrip()}", flush=True)
+            if out.returncode != 0:
+                print(out.stderr[-3000:], file=sys.stderr)
+                raise RuntimeError(f"examples: {name} exited "
+                                   f"{out.returncode}")
+            if name == "torch_quickstart.py" and \
+                    out.stdout.count("bit-exact=True") != 2:
+                raise AssertionError("examples: the quickstart's compiled "
+                                     "runs are not bit-exact")
+    emit(res)
+    return res
+
+
 # ------------------------------------------------------------ dry run
 def _dryrun_cells() -> list[tuple[str, str, int | None]]:
     """(arch, shape, layers) of the phase: every architecture's train_4k
@@ -420,6 +486,7 @@ def phase_dryrun(smi: str, device: str = "cuda") -> dict:
     from repro_torch.launch import dryrun, roofline
 
     t0 = time.perf_counter()
+    cpu = json.loads(DRYRUN_CPU.read_text())
     cells = _dryrun_cells()
     done = dryrun.run_cells([(a, sh, "single", n) for a, sh, n in cells],
                             workers=DRYRUN_WORKERS, device=device,
@@ -436,6 +503,11 @@ def phase_dryrun(smi: str, device: str = "cuda") -> dict:
         r = json.loads(path.read_text())
         a = roofline.analyze_cell(r)
         coll = r["collectives"]
+        base = cpu["cells"][f"{arch} {shape}"]
+        ratio = {"flops": r["hlo_flops"] / base["flops"],
+                 "collective_bytes": (coll["total_bytes"]
+                                      / base["collective_bytes"]
+                                      if base["collective_bytes"] else None)}
         row = {"phase": "dryrun_cell", "arch": arch, "shape": shape,
                "status": r["status"], "n_chips": r["n_chips"],
                "layers_run": r["layers_run"], "layers": r["layers"],
@@ -446,9 +518,14 @@ def phase_dryrun(smi: str, device: str = "cuda") -> dict:
                "bytes_per_device": r["hlo_bytes"],
                "collective_gb": {k: v / 1e9
                                  for k, v in coll["bytes"].items()},
+               "collective_bytes": coll["total_bytes"],
                "forced_redistributions": {
                    f"{f['op']} -> {f['action']}": f["count"]
                    for f in r["forced_redistributions"]},
+               "collectives_by_op": dict(list(
+                   r["collectives_by_op"].items())[:6]),
+               "torch": r["torch"], "cpu_torch": cpu["torch"],
+               "card_over_cpu": ratio,
                **{k: a[k] for k in ("t_compute_s", "t_memory_s",
                                     "t_collective_s", "dominant")},
                "priced_at": roofline.CARD, "card": smi,
@@ -457,6 +534,10 @@ def phase_dryrun(smi: str, device: str = "cuda") -> dict:
         rows.append(row)
         if r["status"] != "ok":
             failed.append((arch, shape, r["status"], ""))
+        if arch in DRYRUN_GATED and shape == "train_4k" and not all(
+                1 / DRYRUN_CPU_RATIO <= v <= DRYRUN_CPU_RATIO
+                for v in ratio.values()):
+            failed.append((arch, shape, f"card / CPU {ratio}", ""))
     res = {"phase": "dryrun", "cells": len(cells), "ok": len(rows),
            "torch": torch.__version__,
            "mesh": f"single (16, 16), fake process group, {device}",
@@ -544,7 +625,8 @@ def kernel_row(native, name, lib, kern, plain, cost, shape) -> dict:
             "cluster": cluster}
 
 
-def kernel_at(native, P, pc, rng, name: str, dims, primes=None) -> dict:
+def kernel_at(native, P, pc, rng, name: str, dims, primes=None,
+              unaligned: bool = False) -> dict:
     """``kernel_row`` of kernel ``name`` at call shape ``dims``, as
     ``native.CALLS`` keys it, on random residues of ``P``'s primes:
 
@@ -552,7 +634,8 @@ def kernel_at(native, P, pc, rng, name: str, dims, primes=None) -> dict:
       primes of the chain unless ``primes`` is given;
     - ``bconv``: (..., k, l) from the special primes to the first l (a
       ModDown); ``bconv_rescale``: (..., 1, l) from prime l to the l
-      below it; both also exact on all-(q-1) residues;
+      below it; both also exact on all-(q-1) residues; ``unaligned``
+      puts the operand 8 bytes past a 16-byte boundary;
     - ``fused_ip``: digits (..., R, dnum, l_ext, N), then the number of
       evk stacks and whether plaintexts come with them;
     - ``modup_all``: the input (..., l, N), every digit of level l-1."""
@@ -582,6 +665,10 @@ def kernel_at(native, P, pc, rng, name: str, dims, primes=None) -> dict:
                else P.q_primes[ld:ld + ls])
         cc = BConvConsts(pc.rns, src, P.q_chain(ld - 1), dev)
         x = residues(rng, src, tuple(dims[:-2]) + (ls, N), dev)
+        if unaligned:
+            flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+            x = flat[1:].view(x.shape).copy_(x)
+            assert x.data_ptr() % 16 == 8
         top = (cc.src_q[:, None] - 1).expand(x.shape).contiguous()
         exact(name, bconv(top, cc), bconv_plain(
             top, cc.qhat_inv, cc.src_q, cc.qhat_mod, cc.dst_q), dims)
@@ -637,8 +724,45 @@ def phase_kernels(P, native) -> dict:
     }
     out = {name: kernel_at(native, P, pc, rng, name, dims, primes)
            for name, (dims, primes) in shapes.items()}
+    # an operand 8 bytes past a 16-byte boundary, at the ModDown shape
+    out["bconv_unaligned"] = kernel_at(native, P, pc, rng, "bconv",
+                                       shapes["bconv"][0], unaligned=True)
+    out["bconv_dnum1"] = phase_dnum1(native, rng)
     emit({"phase": "kernels", "results": out})
     return out
+
+
+# the paper's chain with one digit: ModDown converts from alpha = k = 36
+# primes of P, more than the BConv kernel holds in shared memory at once
+DNUM1_KW = dict(logN=16, L=35, alpha=36, k=36)
+
+
+def phase_dnum1(native, rng) -> dict:
+    """A multiply (relinearization: ModUp -> inner product -> ModDown
+    of both accumulators, (2, 36) -> (2, 36)) of a dnum = 1 chain on the
+    card, its BConv calls at that shape counted, then the kernel row at
+    that shape held against ``bconv_plain`` residue for residue."""
+    from repro_torch.core.ckks import CKKSContext
+    from repro_torch.core.params import CKKSParams
+
+    P1 = CKKSParams(**DNUM1_KW)
+    t0 = time.perf_counter()
+    ctx = CKKSContext(P1, seed=SEED, device="cuda")
+    z = rng.uniform(-1, 1, P1.num_slots)
+    a, b = ctx.encrypt(z), ctx.encrypt(z)
+    native.reset_counts()
+    m = ctx.multiply(a, b)
+    torch.cuda.synchronize()
+    key = ("bconv", (2, P1.k, P1.L + 1))
+    calls = native.CALLS.get(key, 0)
+    if calls < 1 or m.level != P1.L - 1:
+        raise AssertionError(f"dnum=1 multiply: {calls} BConv calls at "
+                             f"{key}, level {m.level}")
+    row = kernel_at(native, P1, ctx.pc, rng, "bconv",
+                    [2, P1.k, P1.L + 1])
+    row["path_calls"] = calls
+    row["path_s"] = time.perf_counter() - t0
+    return row
 
 
 # ------------------------------------------------------------- phases 3, 5
@@ -2782,6 +2906,7 @@ def main() -> int:
     phase_lm_zoo(smi)
     phase_lm_train(smi, native)
     dist_res = phase_distributed(native)
+    phase_examples(smi)
     kern = phase_kernels(PAPER_PARAMS, native)
     main_res = phase_main(PAPER_PARAMS, native)
     rt = phase_runtime(PAPER_PARAMS, native)
@@ -2854,6 +2979,14 @@ def main() -> int:
                      **at_shape, "distributed_launches": 0,
                      "shape": r["shape"],
                      **{k: r[k] for k in keys}})
+    # ModDown of a dnum = 1 chain, (2, 36) -> (2, 36): ``launches`` counts
+    # the calls at that shape in the dnum = 1 multiply of phase_kernels
+    r = kern["bconv_dnum1"]
+    src, rep, _ = sources["bconv"]
+    rows.append({"name": "bconv_dnum1", "route": "cuda", "source": src,
+                 "replaces": rep, "launches": r["path_calls"],
+                 **{p: 0 for p in paths}, "distributed_launches": 0,
+                 "shape": r["shape"], **{k: r[k] for k in keys}})
     emit({"kernels": rows})
     print(f"card: {smi}; total {time.perf_counter() - t_start:.1f} s",
           flush=True)

@@ -32,6 +32,16 @@
 //     wrapper checks them and passes gacc (4 for every prime the repo
 //     makes).  bconv_lazy_host in kernels/modops.py repeats this
 //     arithmetic on the host.
+//   * Any number of source rows, any 8-byte aligned operand: at most
+//     kChunk source rows of a 16-byte aligned operand (every shape of the
+//     repo's dnum > 1 chains) take bconv_kernel, which loads its tile
+//     once.  More rows, or an operand 8 bytes past a 16-byte boundary,
+//     take bconv_wide_kernel: the block takes the source rows kChunk at a
+//     time (the tile, its scaled copy and the constants of one chunk in
+//     shared memory), the accumulators and the lazy-reduction count
+//     carried from chunk to chunk, in rounds of groups that every thread
+//     runs (the chunk loads synchronise the block); an unaligned operand
+//     is loaded with two 8-byte copies a pair of columns.
 #include <cuda_runtime.h>
 
 #include "launch_log.cuh"
@@ -39,7 +49,7 @@
 
 using namespace he2;
 
-constexpr int kMaxSrc = 32;
+constexpr int kChunk = 32;  // source rows in shared memory at a time
 constexpr int kCols = 2;
 constexpr int kMaxThreads = 512;
 
@@ -49,6 +59,13 @@ __device__ __forceinline__ void copy16_async(void* smem_dst, const void* src) {
                : "memory");
 }
 
+__device__ __forceinline__ void copy8_async(void* smem_dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+// At most kChunk source rows, 16-byte aligned: the tile is loaded once.
 template <int G>
 __global__ void __launch_bounds__(kMaxThreads)
 bconv_kernel(const longlong2* __restrict__ x, longlong2* __restrict__ y,
@@ -151,7 +168,141 @@ bconv_kernel(const longlong2* __restrict__ x, longlong2* __restrict__ y,
   }
 }
 
+// Any number of source rows, kChunk at a time, and an operand that may
+// be 8- but not 16-byte aligned.  With one chunk and an aligned operand it
+// computes what bconv_kernel computes; bconv_kernel is that case written
+// out on its own, so that the paper's shapes keep its speed.
+template <int G>
+__global__ void __launch_bounds__(kMaxThreads)
+bconv_wide_kernel(const int64_t* __restrict__ x, longlong2* __restrict__ y,
+             const uint32_t* __restrict__ qhat_inv,
+             const uint32_t* __restrict__ src_q,
+             const uint32_t* __restrict__ src_qn,
+             const uint32_t* __restrict__ cm,
+             const uint32_t* __restrict__ dst_q,
+             const uint32_t* __restrict__ dst_qn, int ls, int ld, int logn,
+             int lane_bits, int groups, int tile_bits, int gacc,
+             int aligned) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lanes = 1 << lane_bits;
+  const int rows = groups * G;  // ld padded to whole groups
+  const int chunk = min(ls, kChunk);
+  // [chunk][lanes] raw source tile, [chunk] source constants,
+  // [chunk][lanes] scaled tile, [rows] (d, dn), [chunk][rows] constants
+  longlong2* s_x = reinterpret_cast<longlong2*>(smem);
+  uint4* s_src = reinterpret_cast<uint4*>(s_x + chunk * lanes);
+  uint2* s_t = reinterpret_cast<uint2*>(s_src + chunk);
+  uint2* s_dst = s_t + chunk * lanes;
+  uint32_t* s_c = reinterpret_cast<uint32_t*>(s_dst + rows);
+
+  const int nt = blockDim.x, h = threadIdx.x;
+  const size_t row = size_t(1) << (logn - 1);  // a row in 16-byte pairs
+  const size_t pair0 = size_t(blockIdx.x & ((1u << tile_bits) - 1))
+                       << lane_bits;
+  const size_t b = blockIdx.x >> tile_bits;
+  const int64_t* src = x + 2 * (b * ls * row + pair0);
+
+  for (int j = h; j < rows; j += nt) {
+    const int jj = min(j, ld - 1);  // a padding row computes, never stores
+    s_dst[j] = make_uint2(dst_q[jj], dst_qn[jj]);
+  }
+  // source rows [c0, c0 + cl) into shared memory, scaled once
+  auto load = [&](int c0, int cl) {
+    __syncthreads();  // the previous chunk's readers are done
+#ifndef HE2_BCONV_NO_LOAD  // study builds (tools/ntt_study.py --bconv)
+    for (int k = h; k < cl * lanes; k += nt) {
+      const int64_t* at =
+          src + 2 * (size_t(c0 + (k >> lane_bits)) * row + (k & (lanes - 1)));
+      if (aligned) {
+        copy16_async(s_x + k, at);
+      } else {
+        copy8_async(s_x + k, at);
+        copy8_async(reinterpret_cast<int64_t*>(s_x + k) + 1, at + 1);
+      }
+    }
+#endif
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+#pragma unroll 4
+    for (int k = h; k < cl * rows; k += nt) {
+      const int i = k / rows, j = k - i * rows;
+      s_c[k] = j < ld ? cm[(c0 + i) * ld + j] : 0u;
+    }
+    for (int i = h; i < cl; i += nt)
+      s_src[i] =
+          make_uint4(qhat_inv[c0 + i], src_q[c0 + i], src_qn[c0 + i], 0u);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    for (int k = h; k < cl * lanes; k += nt) {  // scale the tile once
+      const uint4 sc = s_src[k >> lane_bits];
+      const longlong2 v = s_x[k];
+      s_t[k] =
+          make_uint2(mont_mul(static_cast<uint32_t>(v.x), sc.x, sc.y, sc.z),
+                     mont_mul(static_cast<uint32_t>(v.y), sc.x, sc.y, sc.z));
+    }
+    __syncthreads();
+  };
+
+  const int lane = h & (lanes - 1);
+  const int slots = nt >> lane_bits;
+  const bool once = ls <= kChunk;  // one chunk: load it once
+  if (once) load(0, ls);
+  longlong2* dst = y + b * ld * row + pair0 + lane;
+  // every thread runs every round (the chunk loads synchronise the block)
+  for (int base = 0; base < groups; base += slots) {
+    const int grp = base + (h >> lane_bits);
+    const bool active = grp < groups;
+    const int j0 = grp * G;
+    uint64_t acc[G][kCols];
+#pragma unroll
+    for (int g = 0; g < G; ++g) acc[g][0] = acc[g][1] = 0;
+    int left = gacc;
+    for (int c0 = 0; c0 < ls; c0 += kChunk) {
+      const int cl = min(kChunk, ls - c0);
+      if (!once) load(c0, cl);
+      if (!active) continue;
+      for (int i = 0; i < cl; ++i) {
+        const uint2 t = s_t[(i << lane_bits) + lane];
+        const uint32_t* c = s_c + i * rows + j0;
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          acc[g][0] += static_cast<uint64_t>(t.x) * c[g];
+          acc[g][1] += static_cast<uint64_t>(t.y) * c[g];
+        }
+        if (--left == 0 || c0 + i + 1 == ls) {  // uniform across the block
+          left = gacc;
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const uint2 d = s_dst[j0 + g];
+#pragma unroll
+            for (int k = 0; k < kCols; ++k)
+              acc[g][k] = static_cast<uint64_t>(fold(
+                              mont_redc_lazy(acc[g][k], d.x, d.y), 2 * d.x))
+                          << 32;
+          }
+        }
+      }
+    }
+    if (!active) continue;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int j = j0 + g;
+#ifdef HE2_BCONV_NO_STORE  // study builds: compute, but store (almost) nothing
+      if (j < ld && static_cast<uint32_t>(acc[g][0] >> 32) == 0xffffffffu)
+#else
+      if (j < ld)
+#endif
+      {
+        const uint32_t d = s_dst[j].x;
+        dst[size_t(j) * row] =
+            make_longlong2(fold(static_cast<uint32_t>(acc[g][0] >> 32), d),
+                           fold(static_cast<uint32_t>(acc[g][1] >> 32), d));
+      }
+    }
+  }
+}
+
 using Kernel = decltype(&bconv_kernel<2>);
+using WideKernel = decltype(&bconv_wide_kernel<2>);
 
 static Kernel kernel_for(long long g) {
   switch (g) {
@@ -159,6 +310,16 @@ static Kernel kernel_for(long long g) {
     case 4: return bconv_kernel<4>;
     case 6: return bconv_kernel<6>;
     case 9: return bconv_kernel<9>;
+    default: return nullptr;
+  }
+}
+
+static WideKernel wide_kernel_for(long long g) {
+  switch (g) {
+    case 2: return bconv_wide_kernel<2>;
+    case 4: return bconv_wide_kernel<4>;
+    case 6: return bconv_wide_kernel<6>;
+    case 9: return bconv_wide_kernel<9>;
     default: return nullptr;
   }
 }
@@ -174,8 +335,8 @@ static int log2_exact(long long v) {
 // tile and `tiles` tiles a row (lanes * kCols * tiles = N, both powers of
 // two), `threads` (a multiple of lanes) a block; one launch of batch *
 // tiles blocks.  cm holds (qhat_i mod d_j) in Montgomery form, (ls, ld);
-// gacc source rows go into a sum before it is reduced.  x and y must be
-// 16-byte aligned.
+// gacc source rows go into a sum before it is reduced.  x must be 8-byte
+// aligned (16-byte alignment takes the one-copy load), y 16-byte aligned.
 extern "C" int bconv(const int64_t* x, int64_t* y, const uint32_t* qhat_inv,
                      const uint32_t* src_q, const uint32_t* src_qn,
                      const uint32_t* cm, const uint32_t* dst_q,
@@ -183,27 +344,42 @@ extern "C" int bconv(const int64_t* x, int64_t* y, const uint32_t* qhat_inv,
                      long long ld, long long logn, long long gacc, long long g,
                      long long lanes, long long threads, long long tiles,
                      long long groups, cudaStream_t st) {
-  const Kernel kernel = kernel_for(g);
   const int lane_bits = log2_exact(lanes), tile_bits = log2_exact(tiles);
   const long long blocks = batch * tiles;
-  if (!kernel || ls < 1 || ls > kMaxSrc || ld < 1 || logn < 1 || gacc < 1 ||
+  if (!kernel_for(g) || ls < 1 || ld < 1 || logn < 1 || gacc < 1 ||
       lane_bits < 0 || tile_bits < 0 || threads < lanes ||
       threads > kMaxThreads || threads % lanes ||
       lanes * kCols * tiles != (1LL << logn) || groups != (ld + g - 1) / g ||
       blocks < 1 || blocks > 0x7fffffffLL ||
-      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16)
+      reinterpret_cast<uintptr_t>(x) % 8 ||
+      reinterpret_cast<uintptr_t>(y) % 16)
     return cudaErrorInvalidValue;
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const long long chunk = ls < kChunk ? ls : kChunk;
   const size_t smem =
-      size_t(ls * lanes) * (sizeof(longlong2) + sizeof(uint2)) +
-      size_t(ls) * sizeof(uint4) +
-      size_t(groups * g) * (sizeof(uint2) + ls * sizeof(uint32_t));
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return e;
-  kernel<<<unsigned(blocks), unsigned(threads), smem, st>>>(
-      reinterpret_cast<const longlong2*>(x), reinterpret_cast<longlong2*>(y),
-      qhat_inv, src_q, src_qn, cm, dst_q, dst_qn, int(ls), int(ld), int(logn),
-      lane_bits, int(groups), tile_bits, int(gacc));
+      size_t(chunk * lanes) * (sizeof(longlong2) + sizeof(uint2)) +
+      size_t(chunk) * sizeof(uint4) +
+      size_t(groups * g) * (sizeof(uint2) + chunk * sizeof(uint32_t));
+  cudaError_t e;
+  if (ls <= kChunk && aligned) {
+    const Kernel kernel = kernel_for(g);
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return e;
+    kernel<<<unsigned(blocks), unsigned(threads), smem, st>>>(
+        reinterpret_cast<const longlong2*>(x), reinterpret_cast<longlong2*>(y),
+        qhat_inv, src_q, src_qn, cm, dst_q, dst_qn, int(ls), int(ld),
+        int(logn), lane_bits, int(groups), tile_bits, int(gacc));
+  } else {
+    const WideKernel kernel = wide_kernel_for(g);
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return e;
+    kernel<<<unsigned(blocks), unsigned(threads), smem, st>>>(
+        x, reinterpret_cast<longlong2*>(y), qhat_inv, src_q, src_qn, cm, dst_q,
+        dst_qn, int(ls), int(ld), int(logn), lane_bits, int(groups), tile_bits,
+        int(gacc), int(aligned));
+  }
   e = cudaGetLastError();
   if (e == cudaSuccess) log_launch(1);
   return e;

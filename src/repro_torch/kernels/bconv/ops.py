@@ -8,7 +8,10 @@ Counterpart of the JAX package's ``kernels/bconv`` (``BConvKernelConsts``,
 
 On a CPU tensor ``bconv`` runs the plain version; on a CUDA tensor it
 launches ``csrc/bconv.cu`` once, with the launch geometry that
-``geometry`` picks here.
+``geometry`` picks here.  The kernel takes any number of source rows
+(``CHUNK`` at a time) and an operand that is 8- but not 16-byte
+aligned; it refuses primes from 2^30 up, as the reference's Montgomery
+arithmetic does (``src/repro/kernels/modops.py``).
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ from repro_torch.kernels.modops import (
 )
 from repro_torch.kernels.ntt.ops import MAX_PRIME, check_rows
 
-MAX_SRC = 32  # ``kMaxSrc`` in csrc/bconv.cu
+CHUNK = 32  # ``kChunk`` in csrc/bconv.cu: source rows in shared memory
 COLS = 2  # ``kCols``: columns a thread, one 16-byte load or store a row
 MAX_THREADS = 512  # ``kMaxThreads``
 GROUP_ROWS = (2, 4, 6, 9)  # the instantiations of ``bconv_kernel<G>``
@@ -112,13 +115,8 @@ def bconv(x: torch.Tensor, c: BConvConsts) -> torch.Tensor:
     if x.device.type == "cpu":
         return bconv_plain(x, c.qhat_inv, c.src_q, c.qhat_mod, c.dst_q)
     native.check_cuda("bconv", x)
-    if c.ls > MAX_SRC:
-        raise ValueError(f"bconv: {c.ls} source limbs, kernel takes "
-                         f"at most {MAX_SRC}")
     if c.max_prime >= MAX_PRIME:
         raise ValueError(f"bconv: prime {c.max_prime} is not below 2^30")
-    if x.data_ptr() % 16:
-        raise ValueError("bconv: operand is not 16-byte aligned")
     batch = x.numel() // (c.ls * n)
     geo = geometry(batch, c.ls, c.ld, c.logn)
     y = torch.empty(x.shape[:-2] + (c.ld, n), dtype=torch.int64,

@@ -18,7 +18,11 @@ so every count below is one device's:
   view moves nothing.  The names are the reference's keys; the
   numbers are counts of the port's eager ops, not of compiled HLO.
 * ``collectives``: the output bytes of every ``c10d_functional``
-  collective that DTensor issues on rank 0 (``collective_bytes``).
+  collective issued on rank 0 (``collective_bytes``), and
+  ``collectives_by_op``: the same bytes by what issued them, the
+  ``models.partition`` region (``region attention``, ``region mlp
+  backward``, ...), the DTensor op being dispatched, or the autograd
+  node whose backward ran.
 * ``memory_analysis``: the local bytes of the step's arguments and
   outputs; no temp figure (``torch.distributed._tools.mem_tracker``
   counts a DTensor at its global size under fake tensors).
@@ -28,16 +32,21 @@ so every count below is one device's:
 The port runs each layer eagerly, so these counts already cover every
 layer (the reference's cost analysis counts a scanned layer once).
 
-Where DTensor cannot partition an op that GSPMD would (a view that
-splits a sharded dimension unevenly, an op without a sharding rule), in
-the forward or the backward pass, ``Repartition`` moves that op's
-DTensor inputs to ``Replicate`` on the offending mesh dimensions, as
-GSPMD does, and runs it again.  Each such redistribution is a
-collective and is counted as one; the cell's JSON lists those ops
+The embedding lookup, attention, MLA, the MLP, the MoE, the head, the
+loss and the greedy pick run as ``models.partition`` partitions them:
+the plan of the reference's GSPMD partitioner, with every collective
+placed by that module, so their counts do not depend on the torch
+version.  The ops between them (norms, residual adds, the optimizer)
+and the blocks it does not partition (Mamba, mLSTM, sLSTM) go to
+DTensor's own sharding rules.  Where DTensor cannot partition one of
+those ops (a view that splits a sharded dimension unevenly, an op
+without a sharding rule), in the forward or the backward pass,
+``Repartition`` moves that op's DTensor inputs to ``Replicate`` on the
+offending mesh dimensions and runs it again.  Each such redistribution
+is a collective and is counted as one; the cell's JSON lists those ops
 under ``forced_redistributions``.  What the model computes does not
-change.  DTensor chooses how to partition each op, and its choices
-differ between torch versions, so a cell's counts are those of the
-torch that ran it.
+change.  DTensor's choices differ between torch versions, so the counts
+of a cell that reaches them are those of the torch that ran it.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch phi3_medium_14b \\
@@ -74,6 +83,7 @@ from repro_torch.configs.base import n_active_params
 from repro_torch.configs.shapes import SHAPES, shapes_for
 from repro_torch.launch import plan as plan_mod
 from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import partition
 from repro_torch.models.model import init_cache
 from repro_torch.models.steps import (
     batch_specs, make_prefill_step, make_serve_step, make_train_step,
@@ -156,6 +166,9 @@ class OpCounter(TorchDispatchMode):
         self.flops = 0
         self.bytes = 0
         self.collectives: list[tuple[str, int]] = []
+        # op whose dispatch issued each collective, in ``collectives``' order
+        self.coll_ops: list[str] = []
+        self.op_stack: list[str] = []
         self.by_op: dict[str, list[int]] = {}   # name: [calls, flops, bytes]
         self.paused = 0
         self.journal: list | None = None
@@ -172,6 +185,7 @@ class OpCounter(TorchDispatchMode):
         for name, flops, nbytes in self.journal:
             if name is None:
                 self.collectives.pop()
+                self.coll_ops.pop()
                 continue
             self.flops -= flops
             self.bytes -= nbytes
@@ -180,6 +194,21 @@ class OpCounter(TorchDispatchMode):
             rec[1] -= flops
             rec[2] -= nbytes
         self.journal = None
+
+    def _label(self) -> str:
+        """What issued a collective: the DTensor op being dispatched, the
+        ``models.partition`` region running, or the autograd node whose
+        backward runs."""
+        if self.op_stack:
+            return self.op_stack[-1]
+        region = partition.region_name()
+        if region is not None:
+            return f"region {region}"
+        current = getattr(torch._C, "_current_autograd_node", None)
+        node = current() if current is not None else None
+        if node is not None:
+            return f"backward {node.name()}"
+        return "(between ops)"
 
     def _ours(self, ts) -> bool:
         for t in ts:
@@ -209,6 +238,7 @@ class OpCounter(TorchDispatchMode):
         if func.namespace in ("_c10d_functional", "_dtensor") \
                 and name in _COLLECTIVE:
             self.collectives.append((name, sum(map(_nbytes, outs))))
+            self.coll_ops.append(self._label())
             if self.journal is not None:
                 self.journal.append((None, 0, 0))
             return out
@@ -278,6 +308,13 @@ class Repartition(TorchDispatchMode):
         kwargs = kwargs or {}
         if not any(issubclass(t, DTensor) for t in types):
             return func(*args, **kwargs)
+        self.counter.op_stack.append(str(func))
+        try:
+            return self._dispatch(func, args, kwargs)
+        finally:
+            self.counter.op_stack.pop()
+
+    def _dispatch(self, func, args, kwargs):
         self.counter.begin()
         try:
             out = self._settle(func, _unstrided(func(*args, **kwargs)))
@@ -514,10 +551,18 @@ def lower_step(cfg, kind: str, sds: dict, plans: dict | None,
             out = make_serve_step(cfg)(place["params"], place["cache"],
                                        place["batch"])
     coll = collective_bytes(counter.collectives)
+    by_op: dict = {}
+    for op, (_, nbytes) in zip(counter.coll_ops, counter.collectives):
+        rec = by_op.setdefault(op, [0, 0])
+        rec[0] += 1
+        rec[1] += nbytes
     return {"flops": counter.flops, "bytes": counter.bytes,
             "collectives": {**coll["bytes"],
                             **{f"n_{k}": v for k, v in
                                coll["counts"].items()}},
+            "collectives_by_op": {
+                op: {"count": n, "bytes": b} for op, (n, b) in
+                sorted(by_op.items(), key=lambda kv: -kv[1][1])},
             "forced": {k: r["count"] for k, r in repart.forced.items()},
             "forced_ops": {k: {x: y for x, y in r.items() if x != "count"}
                            for k, r in repart.forced.items()},
@@ -644,6 +689,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
                      "DTensor at its global size under fake tensors"},
         "collectives": coll,
         "forced_redistributions": forced,
+        "collectives_by_op": counts["collectives_by_op"],
         "top_ops_by_bytes": counts["top_ops"],
         "param_bytes_per_device": counts["param_bytes_per_device"],
         "state_bytes_per_device": counts["state_bytes_per_device"],

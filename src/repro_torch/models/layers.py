@@ -20,6 +20,9 @@ A decode step (``cache`` given, one token) writes its keys, latents or
 recurrent states into the cache's tensors IN PLACE and returns them, so
 that a step has no data-dependent shape and no host sync, and can be
 captured in a CUDA graph.
+
+On DTensors (the dry run) the embedding lookup, attention, MLA, the MLP
+and the MoE run as ``models.partition`` partitions them.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.models import partition
 
 
 def rms_norm(x, w, eps=1e-6):
@@ -43,6 +47,13 @@ def layer_norm(x, w, b, eps=1e-5):
     var = xf.var(-1, keepdim=True, unbiased=False)
     out = (xf - mu) * torch.rsqrt(var + eps)
     return (out * w.float() + b.float()).to(x.dtype)
+
+
+def embed(table, tokens, dtype):
+    """Rows ``tokens`` of the embedding ``table``, cast to ``dtype``."""
+    if partition.applies(table):
+        return partition.embed_lookup(table, tokens, dtype)
+    return table[tokens].to(dtype)
 
 
 def apply_norm(x, p, kind):
@@ -150,6 +161,8 @@ def attention(p, x, cfg: ModelConfig, pos, cache=None, window=0):
     PLACE at ``idx`` (``idx % Sc`` in a sliding-window ring buffer) and
     attends to the filled slots; the new cache holds the same tensors and
     ``idx + 1``."""
+    if partition.applies(x):
+        return partition.attention(p, x, cfg, pos, cache, window)
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = x @ p["wq"]
@@ -222,6 +235,8 @@ def mla_attention(p, x, cfg: ModelConfig, pos, cache=None):
     kv_lora_rank) and the shared rope key ``k_rope`` (B, Sc, 1,
     qk_rope_dim); a decode step writes both at ``idx`` in place and
     attends to slots ``0..idx``."""
+    if partition.applies(x):
+        return partition.mla_attention(p, x, cfg, pos, cache)
     m = cfg.mla
     B, S, d = x.shape
     H = cfg.n_heads
@@ -281,6 +296,8 @@ def init_mlp(d, d_ff, kind, dtype, generator, device, bias=False, lead=()):
 def mlp(p, x, kind):
     """SwiGLU (which, as in the reference, has no up bias) or GELU (tanh
     approximation, JAX's default)."""
+    if partition.applies(x):
+        return partition.mlp(p, x, kind)
     if kind == "swiglu":
         h = F.silu(x @ p["gate"]) * (x @ p["up"])
     else:
@@ -353,6 +370,8 @@ def moe(p, x, mo: MoEConfig, kind):
     (E, cap, d) buffer (a dropped pair adds zero at slot ``cap - 1``),
     every expert runs its SwiGLU on its ``cap`` rows, and each pair's
     output, weighted by its gate, is added back to its token."""
+    if partition.applies(x):
+        return partition.moe(p, x, mo, kind)
     B, S, d = x.shape
     T = B * S
     xt = x.reshape(T, d)

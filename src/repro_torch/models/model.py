@@ -243,6 +243,8 @@ def _layer_cache(cache, s: int, r: int, idx):
 def _logits(params, x, cfg):
     x = L.apply_norm(x, params["final_norm"], cfg.norm)
     head = params["lm_head"] if "lm_head" in params else params["embed"].T
+    if L.partition.applies(x):
+        return L.partition.head_logits(x, head)
     return (x @ head).float()
 
 
@@ -262,7 +264,7 @@ def forward(params, tokens, cfg: ModelConfig, positions=None, cache=None,
         return _forward_encdec(params, tokens, cfg, cache, embeds)
     B, S = tokens.shape
     dtype = dtype_of(cfg)
-    x = params["embed"][tokens].to(dtype)
+    x = L.embed(params["embed"], tokens, dtype)
     if embeds is not None:
         n_p = embeds.shape[1]
         x = torch.cat([embeds.to(dtype), x[:, n_p:]], 1)
@@ -339,7 +341,7 @@ def _forward_encdec(params, tokens, cfg, cache, embeds):
         e = e + L.mlp(lp["mlp"], L.apply_norm(e, lp["norm2"], cfg.norm),
                       cfg.mlp)
 
-    x = params["embed"][tokens].to(dtype)
+    x = L.embed(params["embed"], tokens, dtype)
     idx = None if cache is None else int(cache["idx"])
     pos0 = (torch.arange(S, device=dev) if cache is None
             else torch.full((1,), idx, device=dev))
@@ -360,6 +362,8 @@ def _forward_encdec(params, tokens, cfg, cache, embeds):
 
 
 def _bidir_attention(p, x, cfg, mask):
+    if L.partition.applies(x):
+        return L.partition.cross_attention(p, x, x, cfg)
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = (x @ p["wq"]).reshape(B, S, H, hd)
@@ -370,6 +374,8 @@ def _bidir_attention(p, x, cfg, mask):
 
 
 def _cross_attention(p, x, enc, cfg):
+    if L.partition.applies(x):
+        return L.partition.cross_attention(p, x, enc, cfg)
     B, S, d = x.shape
     Ta = enc.shape[1]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd

@@ -13,6 +13,10 @@ Gradients come from plain autograd, where the reference takes
 restores their flags.  Each gradient keeps its leaf's dtype (bf16 for a
 bf16 leaf, float32 for the float32 router, ``A_log``, ``D``, ``dt_bias``
 and ``wif``), as the reference's do.
+
+On DTensors (the dry run) the loss over the vocabulary and the greedy
+pick run as ``models.partition`` partitions them, and each gradient is
+brought to its parameter's placements once (``partition.sync_grad``).
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import SHAPES, ShapeSpec
+from repro_torch.models import partition
 from repro_torch.models.model import forward, init_cache, init_params
 from repro_torch.train.tree import leaves, unflatten_like
 
@@ -37,17 +42,24 @@ def loss_fn(params, batch, cfg: ModelConfig):
         embeds=batch.get("embeds"),
     )
     labels = batch["labels"].long()
-    # a masked label (< 0) picks column 0; its term is multiplied by 0
-    picked_at = labels.clamp_min(0)[..., None]
-    if cfg.ce_impl == "softmax":      # baseline: full (B,S,V) log-softmax
-        logp = torch.log_softmax(logits, -1)
-        ll = logp.gather(-1, picked_at)[..., 0]
+    if partition.applies(logits):
+        ll = partition.token_log_likelihood(logits, labels, cfg.ce_impl)
     else:
-        # logsumexp + gather: no (B, S, V) log-softmax array
-        lse = torch.logsumexp(logits, -1)
-        ll = logits.gather(-1, picked_at)[..., 0] - lse
+        ll = log_likelihood(logits, labels, cfg.ce_impl)
     mask = (labels >= 0).float()
     return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+def log_likelihood(logits, labels, ce_impl: str):
+    """Each position's log-probability of its label (float32 (B, S)); a
+    masked label (< 0) picks column 0, and ``loss_fn`` weights it 0."""
+    picked_at = labels.clamp_min(0)[..., None]
+    if ce_impl == "softmax":      # baseline: full (B,S,V) log-softmax
+        logp = torch.log_softmax(logits, -1)
+        return logp.gather(-1, picked_at)[..., 0]
+    # logsumexp + gather: no (B, S, V) log-softmax array
+    lse = torch.logsumexp(logits, -1)
+    return logits.gather(-1, picked_at)[..., 0] - lse
 
 
 def value_and_grad(params, batch, cfg: ModelConfig):
@@ -65,7 +77,7 @@ def value_and_grad(params, batch, cfg: ModelConfig):
     finally:
         for t, flag in zip(flat, flags):
             t.requires_grad_(flag)
-    grads = [torch.zeros_like(t) if g is None else g
+    grads = [torch.zeros_like(t) if g is None else partition.sync_grad(g, t)
              for t, g in zip(flat, grads)]
     return loss.detach(), unflatten_like(params, grads)
 
@@ -93,7 +105,10 @@ def make_serve_step(cfg: ModelConfig):
                 positions=batch.get("positions"), cache=cache,
                 embeds=batch.get("embeds"),
             )
-        next_tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
+        if partition.applies(logits):
+            next_tok = partition.greedy_tokens(logits[:, -1])
+        else:
+            next_tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
         return next_tok, cache
 
     return serve_step

@@ -96,23 +96,46 @@ def test_cuda_bconv_sweep(cuda, logn):
 
 @pytest.mark.cuda
 def test_cuda_bconv_refuses(cuda):
-    """More than 32 source rows, a non-contiguous operand or one that is
-    not 16-byte aligned raises before any launch; nothing falls back."""
+    """A non-contiguous operand raises before any launch; nothing falls
+    back.  More than 32 source rows and an operand that is not 16-byte
+    aligned are no longer refused (``test_cuda_bconv_wide_and_unaligned``
+    runs them)."""
     p = CKKSParams(logN=8, L=44, alpha=1, k=33)
     rns = RNSContext(p)
     native.build_all()
     native.launch_log("bconv")
-    c = BConvConsts(rns, p.p_primes, p.q_chain(44)[:3], cuda)
-    with pytest.raises(ValueError, match="at most 32"):
-        bconv(torch.zeros((33, p.N), dtype=torch.int64, device=cuda), c)
     c = BConvConsts(rns, p.p_primes[:4], p.q_chain(44)[:3], cuda)
     x = torch.zeros((p.N, 4), dtype=torch.int64, device=cuda).T
     with pytest.raises(ValueError, match="not contiguous"):
         bconv(x, c)
-    x = torch.zeros(4 * p.N + 1, dtype=torch.int64, device=cuda)[1:]
-    with pytest.raises(ValueError, match="16-byte"):
-        bconv(x.view(4, p.N), c)
     assert native.launch_log("bconv") == (0, [])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logn", [8, 16])
+def test_cuda_bconv_wide_and_unaligned(cuda, logn):
+    """Source rows past the kernel's chunk of 32 (ModDown at dnum = 1:
+    36 -> 36; 33 and 64 rows), unbatched and batched, and operands 8
+    bytes past a 16-byte boundary: one CUDA launch a call, equal to the
+    plain version word for word."""
+    p = CKKSParams(logN=logn, L=35, alpha=36, k=64)
+    rns = RNSContext(p)
+    rng = np.random.default_rng(logn + 36)
+    native.build_all()
+    for ls, ld in ((36, 36), (33, 1), (64, 45), (12, 36), (1, 35)):
+        c = BConvConsts(rns, p.p_primes[:ls], p.q_chain(35)[:ld], cuda)
+        for lead in ((), (2,)):
+            x = _res(rng, c.src, lead + (ls, p.N)).to(cuda)
+            flat = torch.empty(x.numel() + 1, dtype=torch.int64, device=cuda)
+            odd = flat[1:].view(x.shape)
+            odd.copy_(x)
+            assert odd.data_ptr() % 16 == 8
+            want = bconv_plain(x, c.qhat_inv, c.src_q, c.qhat_mod, c.dst_q)
+            for operand in (x, odd):
+                native.launch_log("bconv")
+                got = bconv(operand, c)
+                assert native.launch_log("bconv") == (1, [1])
+                assert torch.equal(got, want), (ls, ld, lead)
 
 
 @pytest.mark.cuda

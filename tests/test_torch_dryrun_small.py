@@ -9,10 +9,14 @@ process group.  A train step (batch 8 x 32) and a decode step (batch 8,
 cache 64) of each REDUCED config run on DTensors over fake tensors:
 
 - phi3-medium-14b: per-device FLOPs > 0 and below the whole step's,
-  all-reduces in training, and the forced redistribution of the
-  key/value reshape (2 kv heads over a 4-way ``model`` axis);
+  all-reduces in training, and no forced redistribution: its 2 kv heads
+  over a 4-way ``model`` axis come from the gathered ``wk`` / ``wv``
+  inside the attention region (``models.partition``);
 - MLA (minicpm3) and MoE (moonshot) here, the hybrid, xLSTM, VLM and
-  encoder-decoder families in ``test_torch_dryrun_families.py``;
+  encoder-decoder families in ``test_torch_dryrun_families.py``; the
+  MoE dispatch stays on each data shard: no forced redistribution, and
+  its region sends only the output all-reduce and the gathered counts
+  per expert;
 - on a 1-device mesh, the per-device FLOPs equal the count of the same
   step on plain fake tensors, and the bytes agree within 1e-4 (DTensor
   adds a copy of a few token ids in decode).
@@ -48,6 +52,7 @@ SCRIPT = textwrap.dedent("""
         return {"flops": r["flops"], "bytes": r["bytes"],
                 "collectives": dryrun._result_collectives(r["collectives"]),
                 "forced": r["forced"],
+                "by_op": r.get("collectives_by_op", {}),
                 "param_bytes": r["param_bytes_per_device"]}
 
 
@@ -119,8 +124,12 @@ def test_dense_train_and_decode(cells):
     assert c["train"]["collectives"]["counts"]["all-reduce"] > 0, \
         "DP training must emit all-reduces"
     assert c["decode"]["flops"] < c["train"]["flops"]
-    # 2 kv heads over the 4-way model axis: the view is replicated
-    assert c["train"]["forced"]["aten.view.default -> replicate model"] > 0
+    # 2 kv heads over the 4-way model axis: each rank builds the kv head
+    # of its query head from the gathered wk / wv, so no view is forced
+    # to replicate, in either step
+    for kind in ("train", "decode"):
+        assert c[kind]["forced"] == {}, kind
+        assert c[kind]["by_op"]["region attention"]["count"] > 0, kind
 
 
 @pytest.mark.parametrize("arch", ["minicpm3_4b", "moonshot_v1_16b_a3b"])
@@ -129,10 +138,17 @@ def test_mla_and_moe_train_and_decode(cells, arch):
 
 
 def test_moe_routing_is_replicated(cells):
-    """DTensor has no sharding rule for the expert counts' scatter_add_:
-    it runs on whole tensors, and the cell lists it."""
-    forced = cells["moonshot_v1_16b_a3b"]["train"]["forced"]
-    assert forced["aten.scatter_add_.default -> replicate all (local)"] > 0
+    """The routing (the expert counts' scatter_add_, the dispatch's
+    index_put_) runs on each data shard's own tokens inside the MoE
+    region: nothing is forced to replicate, and the region's collectives
+    are, in each of its 2 MoE layers, the output all-reduce over
+    ``model`` (bf16 (128, 64) in the train step: 2 data shards of 4 x 32
+    tokens) and the gathered counts per expert ((2, 8) int64)."""
+    cell = cells["moonshot_v1_16b_a3b"]
+    for kind in ("train", "decode"):
+        assert cell[kind]["forced"] == {}, kind
+    moe = cell["train"]["by_op"]["region moe"]
+    assert moe == {"count": 2 * 2, "bytes": 2 * (128 * 64 * 2 + 2 * 8 * 8)}
 
 
 def test_one_device_mesh_equals_plain_step(cells):
