@@ -2980,12 +2980,16 @@ def main() -> int:
                      "shape": r["shape"],
                      **{k: r[k] for k in keys}})
     # ModDown of a dnum = 1 chain, (2, 36) -> (2, 36): ``launches`` counts
-    # the calls at that shape in the dnum = 1 multiply of phase_kernels
+    # the calls at that shape in the dnum = 1 multiply of phase_kernels;
+    # the other paths' columns count their calls at this shape
     r = kern["bconv_dnum1"]
     src, rep, _ = sources["bconv"]
+    key = f"bconv {r['shape']}"
     rows.append({"name": "bconv_dnum1", "route": "cuda", "source": src,
                  "replaces": rep, "launches": r["path_calls"],
-                 **{p: 0 for p in paths}, "distributed_launches": 0,
+                 **{p: sum(run["calls"].get(key, 0) for run in runs)
+                    for p, runs in paths.items()},
+                 "distributed_launches": dist_res["calls"].get(key, 0),
                  "shape": r["shape"], **{k: r[k] for k in keys}})
     emit({"kernels": rows})
     print(f"card: {smi}; total {time.perf_counter() - t_start:.1f} s",

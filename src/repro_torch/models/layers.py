@@ -137,18 +137,61 @@ def init_attention(cfg: ModelConfig, dtype, generator, device, lead=()):
     return p
 
 
-def _sdpa(q, k, v, mask):
-    """q: (B,Sq,H,hd); k/v: (B,Sk,KV,hd) -- GQA via head grouping."""
+def attn_logits(q, k, mask):
+    """Scaled float32 logits (B, KV, g, Sq, Sk) of queries q (B, Sq, H,
+    hd) against keys k (B, Sk, KV, hd), query head h reading key head
+    h // g; -1e30 where ``mask`` (broadcast to (B, Sq, Sk)) is False."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
-    g = H // KV
-    q = q.reshape(B, Sq, KV, g, hd)
+    q = q.reshape(B, Sq, KV, H // KV, hd)
     logits = torch.einsum("bqkgh,bskh->bkgqs", q, k).float()
     logits = logits / math.sqrt(hd)
-    logits = torch.where(mask[:, None, None, :, :], logits, -1e30)
-    w = torch.softmax(logits, -1).to(v.dtype)
-    out = torch.einsum("bkgqs,bskh->bqkgh", w, v)
-    return out.reshape(B, Sq, H, v.shape[-1])
+    return torch.where(mask[:, None, None, :, :], logits, -1e30)
+
+
+def attn_values(w, v):
+    """Attention weights w (B, KV, g, Sq, Sk) applied to values v (B, Sk,
+    KV, vd): (B, Sq, KV * g, vd)."""
+    B, KV, g, Sq, _ = w.shape
+    out = torch.einsum("bkgqs,bskh->bqkgh", w.to(v.dtype), v)
+    return out.reshape(B, Sq, KV * g, v.shape[-1])
+
+
+def _sdpa(q, k, v, mask):
+    """q: (B,Sq,H,hd); k/v: (B,Sk,KV,hd) -- GQA via head grouping."""
+    return attn_values(torch.softmax(attn_logits(q, k, mask), -1), v)
+
+
+def rope_qk(q, k, pos_q, pos_k, cfg: ModelConfig):
+    """RoPE (or M-RoPE) of queries and keys at their positions, as
+    ``cfg.pos`` asks; unchanged otherwise."""
+    if cfg.pos not in ("rope", "mrope"):
+        return q, k
+    sections = mrope_sections(int(cfg.hd * cfg.rope_pct)) \
+        if cfg.pos == "mrope" else None
+    return (apply_rope(q, pos_q, cfg.rope_pct, cfg.rope_theta, sections),
+            apply_rope(k, pos_k, cfg.rope_pct, cfg.rope_theta, sections))
+
+
+def causal_mask(q_idx, Sk: int, window: int = 0):
+    """(len(q_idx), Sk): the query at position ``q_idx[i]`` sees keys
+    0..q_idx[i], the last ``window`` of them when ``window`` > 0."""
+    ki = torch.arange(Sk, device=q_idx.device)
+    mask = q_idx[:, None] >= ki[None, :]
+    if window:
+        mask &= q_idx[:, None] - ki[None, :] < window
+    return mask
+
+
+def cache_slot(idx: int, Sc: int, window: int) -> int:
+    """The cache slot a decode step at ``idx`` writes (a ring buffer
+    when ``window``)."""
+    return idx % Sc if window else idx
+
+
+def cache_valid(slots, idx: int, Sc: int, window: int):
+    """Which of cache slots ``slots`` a decode step at ``idx`` reads."""
+    return slots < min(idx + 1, Sc) if window else slots <= idx
 
 
 def attention(p, x, cfg: ModelConfig, pos, cache=None, window=0):
@@ -173,17 +216,10 @@ def attention(p, x, cfg: ModelConfig, pos, cache=None, window=0):
     q = q.reshape(B, S, H, hd)
     k = k.reshape(B, S, KV, hd)
     v = v.reshape(B, S, KV, hd)
-    sections = mrope_sections(int(hd * cfg.rope_pct)) \
-        if cfg.pos == "mrope" else None
-    if cfg.pos in ("rope", "mrope"):
-        q = apply_rope(q, pos, cfg.rope_pct, cfg.rope_theta, sections)
-        k = apply_rope(k, pos, cfg.rope_pct, cfg.rope_theta, sections)
+    q, k = rope_qk(q, k, pos, pos, cfg)
 
     if cache is None:
-        ar = torch.arange(S, device=x.device)
-        mask = ar[:, None] >= ar[None, :]
-        if window:
-            mask &= ar[:, None] - ar[None, :] < window
+        mask = causal_mask(torch.arange(S, device=x.device), S, window)
         out = _sdpa(q, k, v, mask[None].expand(B, S, S))
         new_cache = {"k": k, "v": v}
     else:
@@ -192,11 +228,11 @@ def attention(p, x, cfg: ModelConfig, pos, cache=None, window=0):
         ck, cv = cache["k"], cache["v"]
         Sc = ck.shape[1]
         idx = int(cache["idx"])
-        slot = idx % Sc if window else idx
+        slot = cache_slot(idx, Sc, window)
         ck[:, slot] = k[:, 0]
         cv[:, slot] = v[:, 0]
-        ar = torch.arange(Sc, device=x.device)
-        valid = ar < min(idx + 1, Sc) if window else ar <= idx
+        valid = cache_valid(torch.arange(Sc, device=x.device), idx, Sc,
+                            window)
         mask = valid[None, None, :].expand(B, 1, Sc)
         out = _sdpa(q, ck, cv, mask)
         new_cache = {"k": ck, "v": cv, "idx": idx + 1}
@@ -242,22 +278,16 @@ def mla_attention(p, x, cfg: ModelConfig, pos, cache=None):
     H = cfg.n_heads
     nope = m.qk_nope_dim
 
-    q = rms_norm(x @ p["wq_a"], p["q_norm"]) @ p["wq_b"]
-    q = q.reshape(B, S, H, nope + m.qk_rope_dim)
+    qa, c_kv, k_rope = mla_latents(p, x, m)
+    q = (qa @ p["wq_b"]).reshape(B, S, H, nope + m.qk_rope_dim)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
-
-    kv_a = x @ p["wkv_a"]
-    c_kv = rms_norm(kv_a[..., :m.kv_lora_rank], p["kv_norm"])
-    k_rope = kv_a[..., m.kv_lora_rank:].reshape(B, S, 1, m.qk_rope_dim)
-
     q_rope = apply_rope(q_rope, pos, 1.0, cfg.rope_theta)
     k_rope = apply_rope(k_rope, pos, 1.0, cfg.rope_theta)
 
     if cache is None:
         new_cache = {"c_kv": c_kv, "k_rope": k_rope}
-        Sk = S
-        ar = torch.arange(S, device=x.device)
-        mask = (ar[:, None] >= ar[None, :])[None].expand(B, S, S)
+        mask = causal_mask(torch.arange(S, device=x.device), S)
+        mask = mask[None].expand(B, S, S)
     else:
         if S != 1:
             raise ValueError(f"a decode step takes one token, got {S}")
@@ -270,11 +300,32 @@ def mla_attention(p, x, cfg: ModelConfig, pos, cache=None):
         mask = valid[None, None, :].expand(B, 1, Sk)
         new_cache = {"c_kv": c_kv, "k_rope": k_rope, "idx": idx + 1}
 
-    kv = (c_kv @ p["wkv_b"]).reshape(B, Sk, H, nope + m.v_head_dim)
-    k_nope, v = kv[..., :nope], kv[..., nope:]
-    k = torch.cat([k_nope, k_rope.expand(B, Sk, H, m.qk_rope_dim)], -1)
+    k, v = mla_keys(c_kv, k_rope, p["wkv_b"], m)
     out = _sdpa(torch.cat([q_nope, q_rope], -1), k, v, mask)
     return out.reshape(B, S, H * m.v_head_dim) @ p["wo"], new_cache
+
+
+def mla_latents(p, x, m):
+    """MLA's latents of ``x``: the query's ``rms_norm(x @ wq_a)``, and
+    the cached ``c_kv`` and (not yet rotated) ``k_rope``."""
+    B, S, _ = x.shape
+    qa = rms_norm(x @ p["wq_a"], p["q_norm"])
+    kv_a = x @ p["wkv_a"]
+    c_kv = rms_norm(kv_a[..., :m.kv_lora_rank], p["kv_norm"])
+    k_rope = kv_a[..., m.kv_lora_rank:].reshape(B, S, 1, m.qk_rope_dim)
+    return qa, c_kv, k_rope
+
+
+def mla_keys(c_kv, k_rope, wkv_b, m):
+    """Keys and values of the heads whose columns ``wkv_b`` holds, from
+    the latents ``c_kv`` (B, Sk, rank) and the rotated ``k_rope``."""
+    B, Sk = c_kv.shape[:2]
+    nope = m.qk_nope_dim
+    kv = (c_kv @ wkv_b).reshape(B, Sk, -1, nope + m.v_head_dim)
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    k = torch.cat([k_nope, k_rope.expand(B, Sk, kv.shape[2],
+                                         m.qk_rope_dim)], -1)
+    return k, v
 
 
 # ------------------------------- MLPs ------------------------------------
@@ -331,7 +382,8 @@ def init_moe(d, mo: MoEConfig, kind, dtype, generator, device, lead=()):
     return p
 
 
-def moe_route(router, xt, mo: MoEConfig) -> dict:
+def moe_route(router, xt, mo: MoEConfig, n_tokens: int | None = None,
+              before=None) -> dict:
     """Top-k routing of ``xt`` (T, d) with static capacity.
 
     The router is float32; the gates are the top-k softmax probabilities
@@ -343,24 +395,51 @@ def moe_route(router, xt, mo: MoEConfig) -> dict:
     ``slot`` being the pair's place in its expert's buffer (``cap - 1``
     for a dropped pair); and ``cap``, the static slots per expert, in
     Python floats as the reference computes it.  No host sync, no
-    data-dependent shape."""
+    data-dependent shape.  ``xt`` may be one shard of a batch of
+    ``n_tokens`` rows, whose capacity then holds, and ``before(counts)``
+    the pairs per expert of the shards ahead of it (their slots come
+    first)."""
     T = xt.shape[0]
     E, k = mo.n_experts, mo.top_k
     probs = torch.softmax(xt.float() @ router, -1)
     gates, eidx = torch.topk(probs, k, -1)
     gates = gates / gates.sum(-1, keepdim=True)
-    cap = max(int(math.ceil(T * k / E * mo.capacity_factor)), 1)
+    cap = max(int(math.ceil((n_tokens or T) * k / E * mo.capacity_factor)),
+              1)
     flat_e = eidx.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
     counts = torch.zeros(E, dtype=flat_e.dtype, device=xt.device) \
         .scatter_add_(0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
+    if before is not None:
+        starts = starts - before(counts)
     pos = torch.arange(T * k, device=xt.device) - starts[sorted_e]
     keep = pos < cap
     return {"gates": gates, "eidx": eidx, "order": order,
             "sorted_e": sorted_e, "slot": torch.where(keep, pos, cap - 1),
             "keep": keep, "tok": order // k, "cap": cap}
+
+
+def moe_experts(p, xt, r: dict, e0: int = 0):
+    """(T, d): each kept pair's output from its expert, weighted by its
+    gate and added to its token.  ``p`` holds experts e0, e0 + 1, ...
+    (all of them by default); pairs routed elsewhere add nothing."""
+    El = p["up"].shape[0]
+    le = r["sorted_e"] - e0
+    mine = r["keep"] & (le >= 0) & (le < El)
+    le = torch.where(mine, le, 0)
+    slot, tok = r["slot"], r["tok"]
+    d = xt.shape[-1]
+    buf = torch.zeros((El, r["cap"], d), dtype=xt.dtype, device=xt.device)
+    buf.index_put_((le, slot), torch.where(mine[:, None], xt[tok], 0),
+                   accumulate=True)
+    h = F.silu(torch.bmm(buf, p["gate"])) * torch.bmm(buf, p["up"])
+    out_e = torch.bmm(h, p["down"])                        # (El, cap, d)
+    y_flat = torch.where(mine[:, None], out_e[le, slot], 0)
+    gate_flat = r["gates"].reshape(-1)[r["order"]]
+    return torch.zeros_like(xt).index_put_(
+        (tok,), y_flat * gate_flat[:, None].to(xt.dtype), accumulate=True)
 
 
 def moe(p, x, mo: MoEConfig, kind):
@@ -373,21 +452,8 @@ def moe(p, x, mo: MoEConfig, kind):
     if partition.applies(x):
         return partition.moe(p, x, mo, kind)
     B, S, d = x.shape
-    T = B * S
-    xt = x.reshape(T, d)
-    r = moe_route(p["router"], xt, mo)
-    sorted_e, slot, keep, tok = r["sorted_e"], r["slot"], r["keep"], r["tok"]
-    buf = torch.zeros((mo.n_experts, r["cap"], d), dtype=xt.dtype,
-                      device=x.device)
-    buf.index_put_((sorted_e, slot), torch.where(keep[:, None], xt[tok], 0),
-                   accumulate=True)
-    h = F.silu(torch.bmm(buf, p["gate"])) * torch.bmm(buf, p["up"])
-    out_e = torch.bmm(h, p["down"])                        # (E, cap, d)
-    y_flat = torch.where(keep[:, None], out_e[sorted_e, slot], 0)
-    gate_flat = r["gates"].reshape(-1)[r["order"]]
-    y = torch.zeros((T, d), dtype=xt.dtype, device=x.device).index_put_(
-        (tok,), y_flat * gate_flat[:, None].to(xt.dtype), accumulate=True)
-    y = y.reshape(B, S, d)
+    xt = x.reshape(B * S, d)
+    y = moe_experts(p, xt, moe_route(p["router"], xt, mo)).reshape(B, S, d)
     if "dense" in p:
         y = y + mlp(p["dense"], x, kind)
     return y

@@ -1,27 +1,33 @@
 """The LM zoo's blocks partitioned over a ``DeviceMesh``, for DTensors.
 
 ``models.layers``, ``models.model`` and ``models.steps`` hand a block to
-this module when its activations are DTensors (the dry run,
-``launch.dryrun``); plain tensors never reach it.  Each block runs as a
-*region*: its DTensor inputs are brought to the placements below, the
-block's arithmetic runs on the local shards, and its output leaves as a
-DTensor.  Inside a region every collective is explicit, so the plan is
-the same on every torch version; outside one, DTensor's own sharding
-rules place the norms, the residual adds, the vocabulary-parallel head
-and the optimizer's elementwise update.  The plan is the one the JAX
-package's GSPMD partitioner finds for ``param_specs`` and ``cache_plan``
-(Megatron-style tensor parallelism on ``model``, the batch on the data
-axes):
+this module when its activations are DTensors on a mesh whose ``model``
+axis splits anything (the dry run, ``launch.dryrun``; a ``Trainer`` or
+a restore on a mesh); plain tensors never reach it.  Each block runs as
+a *region*: its DTensor inputs are brought to the placements below, the
+plain block (``layers.attention``, ``layers.mla_attention``,
+``layers.mlp``, ``layers.moe_experts``, ``model._cross_attention``...)
+runs on the local shards of its weights, and its output leaves as a
+DTensor.  This module adds only the collectives, and local arithmetic
+where no plain block exists: a softmax split over cache shards, the
+vocabulary-parallel lookup, loss and pick, and the MoE's slot offset.
+Inside a region every collective is explicit, so the plan is the same
+on every torch version; outside one, DTensor's own sharding rules place
+the norms, the residual adds and the optimizer's elementwise update.
+The plan is the one the JAX package's GSPMD partitioner finds for
+``param_specs`` and ``cache_plan`` (Megatron-style tensor parallelism
+on ``model``, the batch on the data axes):
 
 - activations ``(B, S, d)`` are sharded on the batch over the data axes
   (``pod``, ``data``) and replicated on ``model``;
-- attention (and MLA) runs its heads' share on each ``model`` rank when
-  the heads divide the axis: column-parallel projections, row-parallel
-  output, one all-reduce; a key/value head that several ranks share is
-  built from the gathered ``wk`` / ``wv``.  When the heads do not divide
-  the axis, each rank takes S / m query rows of every head
-  (sequence-parallel) from the gathered weights, and the rows are
-  gathered after the output projection;
+- attention (and MLA) runs the plain block on its share of the heads on
+  each ``model`` rank when the heads divide the axis: column-parallel
+  projections, row-parallel output, one all-reduce; a key/value head
+  that several ranks share is taken from the gathered ``wk`` / ``wv``.
+  When the heads do not divide the axis, each rank takes S / m query
+  rows of every head from the gathered weights, and the rows are
+  gathered after the output projection; when the rows do not divide
+  either, every rank runs the whole block;
 - a decode step attends over the cache's sequence shard on each rank
   (the cache is sharded on its sequence axis, ``cache_plan``): the new
   token's query, key and value are gathered, the softmax's max and sum
@@ -34,21 +40,23 @@ axes):
 - the embedding lookup, the loss (logsumexp and the picked logit) and
   decode's argmax are vocabulary-parallel: a masked local lookup and
   all-reduces of ``(B, S)`` partials, as GSPMD does;
+- partial sums are all-reduced in their own dtype, as GSPMD's plan
+  does (bf16 in a bf16 model);
 - the gradient of a weight is a partial sum over the data axes (and
-  over ``model`` for a weight every ``model`` rank uses whole);
+  over ``model`` for a weight the ``model`` ranks use differently);
   ``sync_grad`` reduces it once, to its parameter's placements.
 
-What a block computes does not change, only where: the local
-arithmetic is the block's own, and the partial sums add up to the
-unpartitioned result.
+What a block computes does not change, only where: the partial sums add
+up to the unpartitioned result (``tests/test_torch_partition_mesh.py``
+holds every region against the plain step on real meshes).
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 
 import torch
-import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 MODEL = "model"
@@ -169,17 +177,11 @@ class Layout:
 
     def reduce(self, t: torch.Tensor, op: str = "sum",
                batch_dim: int = 0) -> torch.Tensor:
-        """All-reduce a local partial over ``model``.  Without a gradient
-        (prefill, decode) a partial sum of a 16-bit dtype is reduced in
-        float32 and rounded once, as the unpartitioned product is; a
-        training step reduces it in its own dtype."""
-        wide = op == "sum" and not torch.is_grad_enabled() \
-            and t.is_floating_point() and t.element_size() < 4
-        d = DTensor.from_local(t.float() if wide else t, self.mesh,
+        """All-reduce a local partial over ``model``, in its own dtype."""
+        d = DTensor.from_local(t, self.mesh,
                                self.act(batch_dim, Partial(op)),
                                run_check=False)
-        out = d.redistribute(self.mesh, self.act(batch_dim)).to_local()
-        return out.to(t.dtype) if wide else out
+        return d.redistribute(self.mesh, self.act(batch_dim)).to_local()
 
     def gather(self, t: torch.Tensor, dim: int, batch_dim: int = 0,
                grad_model=Partial()) -> torch.Tensor:
@@ -251,168 +253,218 @@ def embed_lookup(table: DTensor, tokens, dtype):
 
 # ------------------------------ attention ----------------------------------
 
-def _qkv_cols(lay: Layout, p, name: str, x, heads: int, hd: int, h0: int,
-              hn: int):
-    """x @ w[name] (+ bias) for heads [h0, h0 + hn) of ``heads``, from
-    the local shard when it holds exactly those heads, else from the
-    gathered weight."""
-    w = p[name]
-    bias = p.get("b" + name[1:])
-    if heads % lay.m == 0 and hn == heads // lay.m \
-            and h0 == lay.rank * hn \
+def _span(lay: Layout, n: int) -> tuple[int, int]:
+    """(first, count) of this rank's share of ``n`` heads or rows; all
+    of them when ``model`` does not divide ``n``."""
+    if n % lay.m:
+        return 0, n
+    return lay.rank * (n // lay.m), n // lay.m
+
+
+def _cols(lay: Layout, w: DTensor, units: list[int], width: int):
+    """Columns of units ``units`` (heads of ``width`` columns each) of
+    ``w``: this rank's shard when it holds exactly those, else taken from
+    the gathered weight (whose gradient is then a partial sum)."""
+    n = len(units)
+    total = w.shape[-1] // width
+    if total % lay.m == 0 and n == total // lay.m \
+            and units == list(range(lay.rank * n, (lay.rank + 1) * n)) \
             and w.placements[lay.mi] == Shard(w.ndim - 1):
-        wl = lay.w_in(w, -1)
-        bl = lay.w_in(bias, -1) if bias is not None else None
-    else:
-        cols = slice(h0 * hd, (h0 + hn) * hd)
-        wl = lay.w_in(w, None)[..., cols]
-        bl = lay.w_in(bias, None)[..., cols] if bias is not None else None
-    out = x @ wl
-    return out + bl if bl is not None else out
+        return lay.w_in(w, -1)
+    whole = lay.w_in(w, None)
+    if units == list(range(units[0], units[0] + n)):
+        return whole[..., units[0] * width:(units[0] + n) * width]
+    at = torch.cat([torch.arange(u * width, (u + 1) * width,
+                                 device=whole.device) for u in units])
+    return whole[..., at]
+
+
+def _rows(lay: Layout, w: DTensor, units: list[int], width: int):
+    """Rows of units ``units`` of ``w`` (the input side of an output
+    projection), as ``_cols``."""
+    n = len(units)
+    total = w.shape[-2] // width
+    if total % lay.m == 0 and n == total // lay.m \
+            and units[0] == lay.rank * n \
+            and w.placements[lay.mi] == Shard(w.ndim - 2):
+        return lay.w_in(w, -2)
+    return lay.w_in(w, None)[..., units[0] * width:(units[0] + n) * width, :]
+
+
+def _head_weights(lay: Layout, p, cfg, bias: bool):
+    """This rank's share of the heads, as the weights of a plain
+    attention block and its config: heads [h0, h0 + H / m), and the kv
+    heads they read (one per local head when the local heads do not
+    split evenly over their kv heads)."""
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    h0, Hl = _span(lay, H)
+    g = H // KV
+    heads = list(range(h0, h0 + Hl))
+    kv = list(range(h0 // g, (h0 + Hl - 1) // g + 1))
+    if Hl % len(kv) or any((h - h0) // (Hl // len(kv)) != h // g - kv[0]
+                           for h in heads):
+        kv = [h // g for h in heads]
+    local = {"wq": _cols(lay, p["wq"], heads, hd),
+             "wk": _cols(lay, p["wk"], kv, hd),
+             "wv": _cols(lay, p["wv"], kv, hd),
+             "wo": _rows(lay, p["wo"], heads, hd)}
+    if bias:
+        local.update(bq=_cols(lay, p["bq"], heads, hd),
+                     bk=_cols(lay, p["bk"], kv, hd),
+                     bv=_cols(lay, p["bv"], kv, hd))
+    cfg = dataclasses.replace(cfg, n_heads=Hl, n_kv_heads=len(kv),
+                              head_dim=hd)
+    return local, cfg
+
+
+def _whole(lay: Layout, p, names):
+    """Weights ``names`` of ``p`` gathered whole, for a block every rank
+    runs alike (their gradients are whole on every rank)."""
+    return {n: lay.w_in(p[n], None, grad_model=Replicate())
+            for n in names if n in p}
+
+
+_ATTN = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 
 
 def attention(p, x: DTensor, cfg, pos, cache=None, window=0):
-    """``layers.attention`` partitioned (see the module's docstring)."""
+    """``layers.attention`` partitioned (``_full_pass``); a decode step
+    over the cache's sequence shard."""
+    from repro_torch.models import layers as L
+
     lay = Layout(x)
     if cache is not None:
         return _attention_decode(lay, p, x, cfg, pos, cache, window)
     with _region("attention"):
-        xl = lay.x_in(x)
         posl = lay.rows(pos, 1 if cfg.pos == "mrope" else 0)
-        return lay.out(_attend(lay, p, cfg, xl, xl, posl, True, window)), None
+        return lay.out(_full_pass(
+            lay, p, cfg, x, x, cfg.bias, posl, True, window,
+            lambda w, xl, kvl, c: L.attention(w, xl, c, posl, None,
+                                              window)[0])), None
 
 
 def cross_attention(p, x: DTensor, kv: DTensor, cfg):
-    """Attention of ``x``'s rows to every row of ``kv`` (``kv`` is ``x``
-    in the encoder's bidirectional layers), no mask and no RoPE, as
-    ``models.model``'s ``_bidir_attention`` and ``_cross_attention``."""
+    """``models.model``'s ``_bidir_attention`` (``kv`` is ``x``) and
+    ``_cross_attention`` partitioned (``_full_pass``): no mask, no RoPE,
+    no biases."""
+    from repro_torch.models import model as M
+
+    def plain(w, xl, kvl, c):
+        if kv is not x:
+            return M._cross_attention(w, xl, kvl, c)
+        full = torch.ones((xl.shape[0],) + xl.shape[1:2] * 2,
+                          dtype=torch.bool, device=xl.device)
+        return M._bidir_attention(w, xl, c, full)
+
     lay = Layout(x)
     with _region("attention"):
-        xl = lay.x_in(x)
-        kvl = xl if kv is x else lay.x_in(kv)
-        return lay.out(_attend(lay, p, cfg, xl, kvl, None, False, 0))
+        return lay.out(_full_pass(lay, p, cfg, x, kv, False, None, False, 0,
+                                  plain))
 
 
-def _attend(lay: Layout, p, cfg, xl, kvl, posl, causal: bool, window: int):
-    """The local part of a full pass of attention: ``xl``'s queries
-    against ``kvl``'s keys and values, heads-parallel when the heads
-    divide ``model`` (the output a partial sum, reduced here), else
-    sequence-parallel over the query rows (the rows gathered here)."""
+def _full_pass(lay: Layout, p, cfg, x, kv, bias: bool, posl, causal: bool,
+               window: int, plain):
+    """The local output of a full pass of attention of ``x``'s rows to
+    ``kv``'s: ``plain(weights, x, kv, cfg)`` on this rank's heads when
+    they divide ``model`` (its output a partial sum, reduced here), else
+    on the whole weights on every rank when the rows do not divide
+    either, else this rank's query rows (``_row_attention``)."""
+    heads = cfg.n_heads % lay.m == 0
+    if heads or x.shape[1] % lay.m:
+        gm = Partial() if heads else Replicate()
+        xl = lay.x_in(x, grad_model=gm)
+        kvl = xl if kv is x else lay.x_in(kv, grad_model=gm)
+        if heads:
+            w, wcfg = _head_weights(lay, p, cfg, bias)
+            return lay.reduce(plain(w, xl, kvl, wcfg))
+        w = _whole(lay, p, _ATTN if bias else _ATTN[:4])
+        return plain(w, xl, kvl, cfg)
+    xl = lay.x_in(x)
+    kvl = xl if kv is x else lay.x_in(kv)
+    return _row_attention(lay, p, cfg, xl, kvl, posl, causal, window, bias)
+
+
+def _row_attention(lay: Layout, p, cfg, xl, kvl, posl, causal: bool,
+                   window: int, bias: bool):
+    """Attention of this rank's S / m query rows of ``xl`` (every head)
+    to every row of ``kvl``: the keys and values column-parallel and
+    gathered, the rows gathered after the output projection."""
     from repro_torch.models import layers as L
 
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     Bl, S = xl.shape[:2]
     Sk = kvl.shape[1]
-    sections = L.mrope_sections(int(hd * cfg.rope_pct)) \
-        if cfg.pos == "mrope" else None
-    if H % lay.m == 0:
-        # heads-parallel: this rank's heads, all rows
-        Hl = H // lay.m
-        h0 = lay.rank * Hl
-        g = H // KV
-        k0, k1 = h0 // g, (h0 + Hl - 1) // g + 1
-        q = _qkv_cols(lay, p, "wq", xl, H, hd, h0, Hl)
-        k = _qkv_cols(lay, p, "wk", kvl, KV, hd, k0, k1 - k0)
-        v = _qkv_cols(lay, p, "wv", kvl, KV, hd, k0, k1 - k0)
-        q = q.reshape(Bl, S, Hl, hd)
-        k = k.reshape(Bl, Sk, k1 - k0, hd)
-        v = v.reshape(Bl, Sk, k1 - k0, hd)
-        if (k1 - k0) * g != Hl:
-            # the local heads share a kv head unevenly: one per head
-            pick = torch.arange(h0, h0 + Hl, device=xl.device) // g - k0
-            k, v = k[:, :, pick], v[:, :, pick]
-        rows = slice(0, S)
-    else:
-        # sequence-parallel: S / m query rows of every head
-        Sl = S // lay.m if S % lay.m == 0 else S
-        r0 = lay.rank * Sl if Sl < S else 0
-        rows = slice(r0, r0 + Sl)
-        q = _qkv_cols(lay, p, "wq", xl[:, rows], H, hd, 0, H)
-        # the keys and values of every row: column-parallel, gathered
-        k = _gathered_cols(lay, p, "wk", kvl)
-        v = _gathered_cols(lay, p, "wv", kvl)
-        q = q.reshape(Bl, Sl, H, hd)
-        k = k.reshape(Bl, Sk, KV, hd)
-        v = v.reshape(Bl, Sk, KV, hd)
-    if cfg.pos in ("rope", "mrope"):
-        q = L.apply_rope(q, posl[..., rows], cfg.rope_pct, cfg.rope_theta,
-                         sections)
-        k = L.apply_rope(k, posl, cfg.rope_pct, cfg.rope_theta, sections)
-    qi = torch.arange(S, device=xl.device)[rows]
-    ki = torch.arange(Sk, device=xl.device)
-    if causal:
-        mask = qi[:, None] >= ki[None, :]
-        if window:
-            mask &= qi[:, None] - ki[None, :] < window
-    else:
-        mask = torch.ones((len(qi), Sk), dtype=torch.bool, device=xl.device)
-    o = L._sdpa(q, k, v, mask[None].expand(Bl, *mask.shape))
-    o = o.reshape(Bl, o.shape[1], -1)
-    if H % lay.m == 0:
-        return lay.reduce(o @ lay.w_in(p["wo"], 0))
-    out = o @ lay.w_in(p["wo"], None)
-    if rows.stop - rows.start < S:
-        # the rows are the same on every rank downstream
-        out = lay.gather(out, 1, grad_model=Replicate())
-    return out
+    r0, Sl = _span(lay, S)
+    rows = slice(r0, r0 + Sl)
+    q = xl[:, rows] @ lay.w_in(p["wq"], None)
+    if bias:
+        q = q + lay.w_in(p["bq"], None)
+    k = _gathered_cols(lay, p, "wk", kvl, bias)
+    v = _gathered_cols(lay, p, "wv", kvl, bias)
+    q = q.reshape(Bl, Sl, H, hd)
+    k = k.reshape(Bl, Sk, KV, hd)
+    v = v.reshape(Bl, Sk, KV, hd)
+    if posl is not None:
+        q, k = L.rope_qk(q, k, posl[..., rows], posl, cfg)
+    qi = torch.arange(r0, r0 + Sl, device=xl.device)
+    mask = L.causal_mask(qi, Sk, window) if causal else \
+        torch.ones((Sl, Sk), dtype=torch.bool, device=xl.device)
+    o = L._sdpa(q, k, v, mask[None].expand(Bl, Sl, Sk))
+    out = o.reshape(Bl, Sl, H * hd) @ lay.w_in(p["wo"], None)
+    # the rows are the same on every rank downstream
+    return lay.gather(out, 1, grad_model=Replicate())
 
 
 def _attention_decode(lay: Layout, p, x, cfg, pos, cache, window):
-    """One decode step over the cache's sequence shard on each rank."""
+    """One decode step over the cache's sequence shard on each rank: the
+    new token's query, key and value column-parallel and gathered, the
+    softmax split over the ranks' keys, the output row-parallel."""
     from repro_torch.models import layers as L
 
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    S = x.shape[1]
-    if S != 1:
-        raise ValueError(f"a decode step takes one token, got {S}")
+    if x.shape[1] != 1:
+        raise ValueError(f"a decode step takes one token, got {x.shape[1]}")
     with _region("attention"):
         xl = lay.x_in(x)
         posl = lay.rows(pos, 1 if cfg.pos == "mrope" else 0)
-        sections = L.mrope_sections(int(hd * cfg.rope_pct)) \
-            if cfg.pos == "mrope" else None
-        q, k, v = (_gathered_cols(lay, p, n, xl) for n in ("wq", "wk", "wv"))
-        q = q.reshape(q.shape[0], 1, H, hd)
-        k = k.reshape(k.shape[0], 1, KV, hd)
-        v = v.reshape(v.shape[0], 1, KV, hd)
-        if cfg.pos in ("rope", "mrope"):
-            q = L.apply_rope(q, posl, cfg.rope_pct, cfg.rope_theta, sections)
-            k = L.apply_rope(k, posl, cfg.rope_pct, cfg.rope_theta, sections)
+        Bl = xl.shape[0]
+        q, k, v = (_gathered_cols(lay, p, n, xl, cfg.bias)
+                   for n in ("wq", "wk", "wv"))
+        q, k = L.rope_qk(q.reshape(Bl, 1, H, hd), k.reshape(Bl, 1, KV, hd),
+                         posl, posl, cfg)
+        v = v.reshape(Bl, 1, KV, hd)
         ck, cv = cache["k"].to_local(), cache["v"].to_local()
         s0, Sc = _cache_span(lay, cache["k"], 1)
         idx = int(cache["idx"])
-        slot = idx % Sc if window else idx
+        slot = L.cache_slot(idx, Sc, window)
         Sl = ck.shape[1]
         if s0 <= slot < s0 + Sl:
             ck[:, slot - s0] = k[:, 0]
             cv[:, slot - s0] = v[:, 0]
-        ar = torch.arange(s0, s0 + Sl, device=xl.device)
-        valid = ar < min(idx + 1, Sc) if window else ar <= idx
-        g = H // KV
-        qg = q.reshape(q.shape[0], 1, KV, g, hd)
-        logits = torch.einsum("bqkgh,bskh->bkgqs", qg, ck).float()
-        logits = logits / math.sqrt(hd)
-        logits = torch.where(valid, logits, -1e30)
-        o = _softmax_combine(lay, logits, cv, Sl < Sc,
-                             "bkgqs,bskh->bqkgh")
-        o = o.reshape(o.shape[0], 1, H * hd)
-        out = _row_parallel(lay, o, p["wo"])
+        valid = L.cache_valid(torch.arange(s0, s0 + Sl, device=xl.device),
+                              idx, Sc, window)
+        logits = L.attn_logits(q, ck, valid[None, None, :])
+        o = L.attn_values(_split_softmax(lay, logits, Sl < Sc), cv)
+        if Sl < Sc:
+            o = lay.reduce(o)
+        out = _row_parallel(lay, o.reshape(Bl, 1, H * hd), p["wo"])
     new_cache = {"k": cache["k"], "v": cache["v"], "idx": idx + 1}
     return lay.out(out), new_cache
 
 
-def _gathered_cols(lay: Layout, p, name: str, xl):
-    """x @ w[name] (+ bias) whole: column-parallel on this rank's shard,
-    then gathered over ``model`` (what is gathered is smaller than the
-    products every rank would otherwise repeat)."""
+def _gathered_cols(lay: Layout, p, name: str, xl, bias: bool):
+    """x @ w[name] (+ its bias) whole: column-parallel on this rank's
+    shard, then gathered over ``model`` (what is gathered is smaller than
+    the products every rank would otherwise repeat)."""
     w = p[name]
-    bias = p.get("b" + name[1:])
+    b = p["b" + name[1:]] if bias else None
     if w.placements[lay.mi] == Shard(w.ndim - 1):
         out = xl @ lay.w_in(w, -1)
-        if bias is not None:
-            out = out + lay.w_in(bias, -1)
+        if b is not None:
+            out = out + lay.w_in(b, -1)
         return lay.gather(out, -1)
     out = xl @ lay.w_in(w, None)
-    return out + lay.w_in(bias, None) if bias is not None else out
+    return out + lay.w_in(b, None) if b is not None else out
 
 
 def _row_parallel(lay: Layout, o, w):
@@ -434,70 +486,67 @@ def _cache_span(lay: Layout, c: DTensor, dim: int) -> tuple[int, int]:
     return 0, Sc
 
 
-def _softmax_combine(lay: Layout, logits, v, split: bool, eq: str):
-    """softmax(logits) @ v over keys split across ``model`` (``split``):
-    the max and the sum are all-reduced, and so are the partial
-    outputs."""
+def _split_softmax(lay: Layout, logits, split: bool):
+    """softmax over the last dimension, whose keys are split across
+    ``model`` when ``split``: the max and the sum are all-reduced (and
+    the caller all-reduces the weighted values)."""
     if not split:
-        w = torch.softmax(logits, -1).to(v.dtype)
-        return torch.einsum(eq, w, v)
+        return torch.softmax(logits, -1)
     mx = lay.reduce(logits.amax(-1, keepdim=True), "max")
     e = torch.exp(logits - mx)
-    z = lay.reduce(e.sum(-1, keepdim=True))
-    w = (e / z).to(v.dtype)
-    return lay.reduce(torch.einsum(eq, w, v))
+    return e / lay.reduce(e.sum(-1, keepdim=True))
 
 
 # --------------------------------- MLA --------------------------------------
 
 def mla_attention(p, x: DTensor, cfg, pos, cache=None):
-    """``layers.mla_attention`` partitioned (see the module's
-    docstring)."""
+    """``layers.mla_attention`` partitioned as ``attention``: the plain
+    block on this rank's heads (the latent projections whole on every
+    rank), else over the query rows; a decode step over the cache's
+    sequence shard."""
     from repro_torch.models import layers as L
 
     lay = Layout(x)
     m = cfg.mla
-    H, nope, rd, vd = cfg.n_heads, m.qk_nope_dim, m.qk_rope_dim, \
-        m.v_head_dim
-    S = x.shape[1]
-    heads = cache is None and H % lay.m == 0
+    H, S = cfg.n_heads, x.shape[1]
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    latent = ("wq_a", "q_norm", "wkv_a", "kv_norm")
     with _region("mla"):
-        xl = lay.x_in(x)
         posl = lay.rows(pos)
+        if cache is None and (H % lay.m == 0 or S % lay.m):
+            heads = H % lay.m == 0
+            xl = lay.x_in(x, grad_model=Partial() if heads else Replicate())
+            if heads:
+                h0, Hl = _span(lay, H)
+                units = list(range(h0, h0 + Hl))
+                w = {n: lay.w_in(p[n], None) for n in latent}
+                w.update(wq_b=_cols(lay, p["wq_b"], units, qk),
+                         wkv_b=_cols(lay, p["wkv_b"], units,
+                                     m.qk_nope_dim + m.v_head_dim),
+                         wo=_rows(lay, p["wo"], units, m.v_head_dim))
+                lcfg = dataclasses.replace(cfg, n_heads=Hl)
+                out, _ = L.mla_attention(w, xl, lcfg, posl)
+                return lay.out(lay.reduce(out)), None
+            w = _whole(lay, p, latent + ("wq_b", "wkv_b", "wo"))
+            return lay.out(L.mla_attention(w, xl, cfg, posl)[0]), None
+        xl = lay.x_in(x)
         Bl = xl.shape[0]
-        # the latent projections are replicated on ``model``
-        qa = L.rms_norm(xl @ lay.w_in(p["wq_a"], None),
-                        lay.w_in(p["q_norm"], None))
-        kv_a = xl @ lay.w_in(p["wkv_a"], None)
-        c_kv = L.rms_norm(kv_a[..., :m.kv_lora_rank],
-                          lay.w_in(p["kv_norm"], None))
-        k_rope = kv_a[..., m.kv_lora_rank:].reshape(Bl, S, 1, rd)
-        if heads:
-            Hl, rows = H // lay.m, slice(0, S)
-            q = qa @ lay.w_in(p["wq_b"], -1)
-            wkv_b = lay.w_in(p["wkv_b"], -1)
-        else:
-            Hl = H
-            Sl = S // lay.m if cache is None and S % lay.m == 0 else S
-            r0 = lay.rank * Sl if Sl < S else 0
-            rows = slice(r0, r0 + Sl)
-            # a decode step's query: column-parallel, gathered; the
-            # latents' up-projection whole, for this rank's keys
-            q = _gathered_cols(lay, p, "wq_b", qa) if cache is not None \
-                else qa[:, rows] @ lay.w_in(p["wq_b"], None)
-            wkv_b = lay.w_in(p["wkv_b"], None)
-        q = q.reshape(Bl, -1, Hl, nope + rd)
-        q_nope, q_rope = q[..., :nope], q[..., nope:]
-        q_rope = L.apply_rope(q_rope, posl[:, rows], 1.0, cfg.rope_theta)
+        qa, c_kv, k_rope = L.mla_latents(
+            {n: lay.w_in(p[n], None) for n in latent}, xl, m)
         k_rope = L.apply_rope(k_rope, posl, 1.0, cfg.rope_theta)
-        split = False
         if cache is None:
-            qi = torch.arange(S, device=xl.device)[rows]
-            ki = torch.arange(S, device=xl.device)
-            mask = (qi[:, None] >= ki[None, :])[None, None, None]
+            # this rank's query rows of every head
+            r0, Sl = _span(lay, S)
+            rows = slice(r0, r0 + Sl)
+            q = qa[:, rows] @ lay.w_in(p["wq_b"], None)
+            mask = L.causal_mask(torch.arange(r0, r0 + Sl, device=xl.device),
+                                 S)[None]
+            split = False
         else:
             if S != 1:
                 raise ValueError(f"a decode step takes one token, got {S}")
+            rows = slice(0, 1)
+            q = _gathered_cols(lay, p, "wq_b", qa, False)
             idx = int(cache["idx"])
             ckv, ckr = (cache[n].to_local() for n in ("c_kv", "k_rope"))
             s0, Sc = _cache_span(lay, cache["c_kv"], 1)
@@ -507,27 +556,23 @@ def mla_attention(p, x: DTensor, cfg, pos, cache=None):
                 ckr[:, idx - s0] = k_rope[:, 0]
             c_kv, k_rope = ckv, ckr
             split = Sl < Sc
-            mask = (torch.arange(s0, s0 + Sl, device=xl.device)
-                    <= idx)[None, None, None, None]
-        Sk = c_kv.shape[1]
-        kv = (c_kv @ wkv_b).reshape(Bl, Sk, Hl, nope + vd)
-        k_nope, v = kv[..., :nope], kv[..., nope:]
-        k = torch.cat([k_nope, k_rope.expand(Bl, Sk, Hl, rd)], -1)
-        qq = torch.cat([q_nope, q_rope], -1).reshape(Bl, -1, Hl, 1,
-                                                     nope + rd)
-        logits = torch.einsum("bqkgh,bskh->bkgqs", qq, k).float()
-        logits = logits / math.sqrt(nope + rd)
-        logits = torch.where(mask, logits, -1e30)
-        o = _softmax_combine(lay, logits, v, split, "bkgqs,bskh->bqkgh")
-        o = o.reshape(Bl, o.shape[1], Hl * vd)
-        if heads:
-            out = lay.reduce(o @ lay.w_in(p["wo"], 0))
-        elif cache is not None:
+            mask = L.cache_valid(torch.arange(s0, s0 + Sl, device=xl.device),
+                                 idx, Sc, 0)[None, None]
+        q = q.reshape(Bl, -1, H, qk)
+        q_rope = L.apply_rope(q[..., m.qk_nope_dim:], posl[:, rows], 1.0,
+                              cfg.rope_theta)
+        q = torch.cat([q[..., :m.qk_nope_dim], q_rope], -1)
+        k, v = L.mla_keys(c_kv, k_rope, lay.w_in(p["wkv_b"], None), m)
+        o = L.attn_values(_split_softmax(lay, L.attn_logits(q, k, mask),
+                                         split), v)
+        if split:
+            o = lay.reduce(o)
+        o = o.reshape(Bl, o.shape[1], H * m.v_head_dim)
+        if cache is not None:
             out = _row_parallel(lay, o, p["wo"])
         else:
-            out = o @ lay.w_in(p["wo"], None)
-            if rows.stop - rows.start < S:
-                out = lay.gather(out, 1, grad_model=Replicate())
+            out = lay.gather(o @ lay.w_in(p["wo"], None), 1,
+                             grad_model=Replicate())
     new_cache = None if cache is None else {
         "c_kv": cache["c_kv"], "k_rope": cache["k_rope"],
         "idx": int(cache["idx"]) + 1}
@@ -537,24 +582,22 @@ def mla_attention(p, x: DTensor, cfg, pos, cache=None):
 # --------------------------------- MLP --------------------------------------
 
 def mlp(p, x: DTensor, kind: str):
-    """``layers.mlp``, column- then row-parallel on ``model``."""
+    """``layers.mlp``, column- then row-parallel on ``model`` (the plain
+    block on this rank's hidden units, its output a partial sum)."""
+    from repro_torch.models import layers as L
+
     lay = Layout(x)
     tp = p["up"].placements[lay.mi] == Shard(p["up"].ndim - 1)
     with _region("mlp"):
         xl = lay.x_in(x, grad_model=Partial() if tp else Replicate())
-        col = -1 if tp else None
-        if kind == "swiglu":
-            h = F.silu(xl @ lay.w_in(p["gate"], col)) \
-                * (xl @ lay.w_in(p["up"], col))
-        else:
-            h = xl @ lay.w_in(p["up"], col)
-            if "b_up" in p:
-                h = h + lay.w_in(p["b_up"], col)
-            h = F.gelu(h, approximate="tanh")
         if tp:
-            out = lay.reduce(h @ lay.w_in(p["down"], -2))
+            w = {n: lay.w_in(p[n], -1) for n in ("up", "gate", "b_up")
+                 if n in p}
+            w["down"] = lay.w_in(p["down"], -2)
+            out = lay.reduce(L.mlp(w, xl, kind))
         else:
-            out = h @ lay.w_in(p["down"], None, grad_model=Replicate())
+            out = L.mlp(_whole(lay, p, ("up", "gate", "b_up", "down")), xl,
+                        kind)
         if "b_down" in p:
             out = out + lay.w_in(p["b_down"], None, grad_model=Replicate())
         return lay.out(out)
@@ -570,51 +613,19 @@ def moe(p, x: DTensor, mo, kind: str):
 
     lay = Layout(x)
     B, S, d = x.shape
-    E, k = mo.n_experts, mo.top_k
     ep = p["up"].placements[lay.mi] == Shard(0)
     part = Partial() if ep else Replicate()
     with _region("moe"):
         xl = lay.x_in(x, grad_model=part)
-        Bl = xl.shape[0]
-        xt = xl.reshape(Bl * S, d)
-        T = xt.shape[0]
+        xt = xl.reshape(-1, d)
         router = lay.w_in(p["router"], None, grad_model=part)
-        probs = torch.softmax(xt.float() @ router, -1)
-        gates, eidx = torch.topk(probs, k, -1)
-        gates = gates / gates.sum(-1, keepdim=True)
-        # the whole batch's capacity and slot order (``moe_route``)
-        cap = max(int(math.ceil(B * S * k / E * mo.capacity_factor)), 1)
-        flat_e = eidx.reshape(-1)
-        order = torch.argsort(flat_e, stable=True)
-        sorted_e = flat_e[order]
-        counts = torch.zeros(E, dtype=flat_e.dtype, device=xt.device) \
-            .scatter_add_(0, flat_e, torch.ones_like(flat_e))
-        before = _counts_before(lay, counts)
-        starts = torch.cumsum(counts, 0) - counts
-        pos = torch.arange(T * k, device=xt.device) - starts[sorted_e] \
-            + before[sorted_e]
-        keep = pos < cap
-        slot = torch.where(keep, pos, cap - 1)
-        tok = order // k
-        # this rank's experts
-        up, gate, down = (lay.w_in(p[n], 0 if ep else None,
-                                   grad_model=None if ep else Replicate())
-                          for n in ("up", "gate", "down"))
-        El = up.shape[0]
-        e0 = lay.rank * El if ep else 0
-        le = sorted_e - e0
-        mine = keep & (le >= 0) & (le < El)
-        le = torch.where(mine, le, 0)
-        buf = torch.zeros((El, cap, d), dtype=xt.dtype, device=xt.device)
-        buf.index_put_((le, slot), torch.where(mine[:, None], xt[tok], 0),
-                       accumulate=True)
-        h = F.silu(torch.bmm(buf, gate)) * torch.bmm(buf, up)
-        out_e = torch.bmm(h, down)
-        y_flat = torch.where(mine[:, None], out_e[le, slot], 0)
-        gate_flat = gates.reshape(-1)[order]
-        y = torch.zeros((T, d), dtype=xt.dtype, device=xt.device).index_put_(
-            (tok,), y_flat * gate_flat[:, None].to(xt.dtype), accumulate=True)
-        y = y.reshape(Bl, S, d)
+        r = L.moe_route(router, xt, mo, n_tokens=B * S,
+                        before=lambda counts: _counts_before(lay, counts))
+        w = {n: lay.w_in(p[n], 0 if ep else None,
+                         grad_model=None if ep else Replicate())
+             for n in ("up", "gate", "down")}
+        e0 = lay.rank * w["up"].shape[0] if ep else 0
+        y = L.moe_experts(w, xt, r, e0).reshape(xl.shape)
         y = lay.out(lay.reduce(y) if ep else y)
     if "dense" in p:
         y = y + L.mlp(p["dense"], x, kind)

@@ -5,9 +5,9 @@ Both sides run the same cells on a small mesh of 8 devices laid out as
 
 - the reference in a subprocess with JAX on the CPU and
   ``--xla_force_host_platform_device_count=8``: the step under
-  ``jax.jit(...).lower().compile()``, per-device FLOPs from
-  ``cost_analysis()`` and collective bytes from ``collective_bytes`` of
-  the compiled HLO (as ``tests/test_dryrun_small.py``);
+  ``jax.jit(...).lower().compile()`` (``tools/reference_collectives.py``'s
+  ``compiled_step``), per-device FLOPs from ``cost_analysis()`` and
+  collective bytes from GSPMD's plan (below);
 - the port in another subprocess on a ``fake`` group of 8 ranks
   (``launch.dryrun.dry_run``, as ``tests/test_torch_dryrun_small.py``).
 
@@ -19,18 +19,27 @@ takes its ``reps <= 1`` branch, so its ``cost_analysis`` covers the
 whole step and needs no scan correction.
 
 The two sides count by different conventions, so the ratios are held
-to a band, not to 1:
+to bands, not to 1:
 
 - FLOPs: XLA counts every op of the fused, partitioned HLO (a
   transcendental or a compare included); the port counts its eager
   local ops (``OpCounter``: 2 m n k a product, one an output element of
-  a pointwise op, one an input element of a reduction).  Port /
-  reference in [0.5, 1.5].
+  a pointwise op, one an input element of a reduction).
 - Collective bytes: the output bytes of every collective on one
-  device on both sides.  GSPMD picks its own reshardings (with 2 kv
-  heads over a 4-way axis it permutes; MoE dispatch gathers), so the
-  band is [0.5, 1.5] where the heads divide the axis and no routing
-  runs, [0.5, 2.0] elsewhere.
+  device.  The reference's are those of GSPMD's plan: every collective
+  of the HLO right after SPMD partitioning, in the step's own dtypes
+  (``tools/reference_collectives.py``'s ``plan``).  The compiled HLO
+  is not the yardstick: XLA's CPU backend then promotes every bf16
+  collective to float32 (a GPU backend does not), and the reference's
+  ``collective_bytes`` skips the tuple-shaped all-reduces that its
+  combiners make; both figures are printed beside the plan's.
+- Each ratio is held within 10% of the reading recorded below (torch
+  2.13 on the CPU against the JAX package's CPU compile), and inside
+  the band the port must meet: FLOPs in [0.5, 1.5]; collective bytes
+  in [0.5, 1.5] for training where the heads divide the axis and no
+  routing runs, in [0.5, 2.0] elsewhere (with 2 kv heads over a 4-way
+  axis GSPMD itself permutes).  A reading that moves needs its cause
+  found (``collectives_by_op``) before its record changes.
 - Where the heads divide the ``model`` axis (phi3 with 4 kv heads,
   minicpm3), the port's cells force no redistribution.
 """
@@ -65,60 +74,45 @@ COLL_BAND = {
     "moonshot": ((0.5, 2.0), (0.5, 2.0)),
 }
 FLOP_BAND = (0.5, 1.5)
+# port / reference as recorded: (cell, kind) -> (collective bytes, FLOPs)
+RECORDED = {
+    ("phi3", "train"): (0.741, 0.895),
+    ("phi3", "decode"): (0.747, 0.654),
+    ("phi3_kv4", "train"): (0.76, 0.864),
+    ("phi3_kv4", "decode"): (1.017, 0.581),
+    ("minicpm3", "train"): (0.956, 0.866),
+    ("minicpm3", "decode"): (1.014, 0.769),
+    ("moonshot", "train"): (0.522, 0.836),
+    ("moonshot", "decode"): (0.51, 0.635),
+}
+DRIFT = 1.1
 NOTHING_FORCED = ("phi3_kv4", "minicpm3")
 
 REFERENCE = textwrap.dedent("""
-    import os
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
-    import dataclasses
     import json
     import sys
+    import tempfile
 
-    import jax
-    import jax.numpy as jnp
-
-    from repro.configs import reduced_config
-    from repro.launch import plan as plan_mod
+    sys.path.insert(0, sys.argv[2])
+    from reference_collectives import (
+        collectives, compiled_step, plan_bytes,
+    )
     from repro.launch.dryrun import collective_bytes
-    from repro.launch.mesh import make_small_mesh
-    from repro.models.model import init_cache, init_params
-    from repro.models.steps import make_serve_step, make_train_step
-    from repro.train.optimizer import AdamW
 
-    mesh = make_small_mesh(8)
     out = {}
     for name, arch, over in json.loads(sys.argv[1]):
-        cfg = dataclasses.replace(reduced_config(arch), n_layers=1, **over)
-        params = jax.eval_shape(lambda: init_params(cfg, jax.random.PRNGKey(0)))
-        opt = AdamW(state_dtype=cfg.optimizer_state_dtype)
-        opt_sds = jax.eval_shape(opt.init, params)
-        batch = {"tokens": jax.ShapeDtypeStruct((8, 32), jnp.int32),
-                 "labels": jax.ShapeDtypeStruct((8, 32), jnp.int32)}
-        p_plan = plan_mod.param_plan(cfg, mesh, params)
-        o_plan = plan_mod.opt_plan(cfg, mesh, opt_sds, p_plan)
-        b_plan = plan_mod.batch_plan(mesh, batch)
-        cache = jax.eval_shape(lambda: init_cache(cfg, 8, 64))
-        c_plan = plan_mod.cache_plan(cfg, mesh, cache)
-        dec = {"tokens": jax.ShapeDtypeStruct((8, 1), jnp.int32)}
-        d_plan = plan_mod.batch_plan(mesh, dec)
-        with mesh:
-            train = jax.jit(make_train_step(cfg, opt),
-                            in_shardings=(p_plan, o_plan, b_plan),
-                            out_shardings=(p_plan, o_plan, None)).lower(
-                params, opt_sds, batch).compile()
-            serve = jax.jit(make_serve_step(cfg),
-                            in_shardings=(p_plan, c_plan, d_plan),
-                            out_shardings=(None, c_plan)).lower(
-                params, cache, dec).compile()
         out[name] = {}
-        for kind, c in (("train", train), ("decode", serve)):
+        for kind in ("train", "decode"):
+            with tempfile.TemporaryDirectory() as tmp:
+                c = compiled_step(arch, over, kind, dump_to=tmp)
+                plan = plan_bytes(tmp)
             cost = c.cost_analysis()
             cost = cost[0] if isinstance(cost, list) else cost
-            coll = collective_bytes(c.as_text())
-            out[name][kind] = {"flops": float(cost.get("flops", 0)),
-                               "coll": coll["total_bytes"],
-                               "by_kind": coll["bytes"],
-                               "counts": coll["counts"]}
+            text = c.as_text()
+            out[name][kind] = {
+                "flops": float(cost.get("flops", 0)), "coll": plan,
+                "compiled": collective_bytes(text)["total_bytes"],
+                "compiled_every": sum(x[1] for x in collectives(text))}
     print(json.dumps(out))
 """)
 
@@ -158,7 +152,8 @@ def _run(script: str, pythonpath: str) -> dict:
     env = dict(os.environ, PYTHONPATH=pythonpath, OMP_NUM_THREADS="1",
                JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
-    out = subprocess.run([sys.executable, "-c", script, json.dumps(CELLS)],
+    out = subprocess.run([sys.executable, "-c", script, json.dumps(CELLS),
+                          str(REPO / "tools")],
                          env=env, capture_output=True, text=True,
                          timeout=600)
     assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
@@ -179,16 +174,24 @@ def _ratio(port: float, ref: float) -> float:
     return port / ref if ref else float("inf") if port else 1.0
 
 
+def _held(r: float, band: tuple, recorded: float | None) -> bool:
+    """``r`` inside ``band`` and within ``DRIFT`` of its reading."""
+    if not band[0] <= r <= band[1]:
+        return False
+    return recorded is None or recorded / DRIFT <= r <= recorded * DRIFT
+
+
 @pytest.mark.parametrize("kind", ["train", "decode"])
 @pytest.mark.parametrize("cell", [c[0] for c in CELLS])
 def test_collective_bytes_within_band(both, cell, kind):
     ref, port = both[0][cell][kind], both[1][cell][kind]
-    lo, hi = COLL_BAND[cell][kind == "decode"]
+    band = COLL_BAND[cell][kind == "decode"]
     r = _ratio(port["coll"], ref["coll"])
-    assert lo <= r <= hi, (
-        f"{cell} {kind}: port {port['coll']} B / reference {ref['coll']} B "
-        f"= {r:.3f}; port by op {port['by_op']}, reference by kind "
-        f"{ref['by_kind']}")
+    assert _held(r, band, RECORDED[cell, kind][0]), (
+        f"{cell} {kind}: port {port['coll']} B / GSPMD's plan {ref['coll']} "
+        f"B = {r:.3f} (band {band}, recorded {RECORDED[cell, kind][0]}); "
+        f"compiled for the CPU: {ref['compiled']} B by collective_bytes, "
+        f"{ref['compiled_every']} B in all; port by op {port['by_op']}")
 
 
 @pytest.mark.parametrize("kind", ["train", "decode"])
@@ -196,9 +199,9 @@ def test_collective_bytes_within_band(both, cell, kind):
 def test_flops_within_band(both, cell, kind):
     ref, port = both[0][cell][kind], both[1][cell][kind]
     r = _ratio(port["flops"], ref["flops"])
-    assert FLOP_BAND[0] <= r <= FLOP_BAND[1], (
+    assert _held(r, FLOP_BAND, RECORDED[cell, kind][1]), (
         f"{cell} {kind}: port {port['flops']} / reference {ref['flops']} "
-        f"= {r:.3f}")
+        f"= {r:.3f} (recorded {RECORDED[cell, kind][1]})")
 
 
 @pytest.mark.parametrize("cell", NOTHING_FORCED)
