@@ -24,8 +24,9 @@ exits non-zero); after the build and the dry run come phases 9, 10, 11,
              ``models/partition`` region that issued them; the torch
              version and the card / CPU ratio of the FLOPs and the
              collective bytes against tools/dryrun_cpu_counts.json),
-             then the phase's seconds.  Gates: every cell ok, and the
-             train_4k cells of stablelm, phi3 and command_r within
+             then the phase's seconds.  Gates: every cell ok, none
+             forcing a redistribution, and the cells of stablelm, phi3,
+             command_r, jamba and xlstm (DRYRUN_GATED) within
              DRYRUN_CPU_RATIO of their CPU counts;
   2. kernels each kernel at the paper shapes (logN=16, level 35: l=36,
              k=12, l_ext=48, dnum=3, alpha=12) against its plain PyTorch
@@ -44,9 +45,12 @@ exits non-zero); after the build and the dry run come phases 9, 10, 11,
              BConv also on an operand 8 bytes past a 16-byte boundary
              (``bconv_unaligned``) and at ModDown of a dnum = 1 chain
              (``bconv_dnum1``: logN=16, L=35, alpha = k = 36, so
-             (2, 36) -> (2, 36), past the kernel's chunk of 32 source
+             (2, 36) -> (2, 36), past the narrow kernel's 32 source
              rows), after one multiply of that chain on the card whose
-             BConv calls at that shape are counted;
+             BConv calls at that shape are counted; these two take the
+             tensor-core kernel (the sums on the int8 tensor cores), whose
+             bound also weighs its tensor-core operations at the data
+             sheet's int8 rate (``bound_terms_ms``);
   3. main    ``CKKSContext(PAPER_PARAMS, device="cuda")``: encrypt two
              slot vectors, multiply (relin + rescale), rotate by 1 and 5,
              a hoisted rotation sum over 4 steps with plaintexts,
@@ -244,6 +248,10 @@ PRODUCT_OPS = 2
 REDUCE_OPS = 2
 MONT_OPS = PRODUCT_OPS + REDUCE_OPS
 PEAK_OPS = None         # multiply results/s, from the card in phase_build
+# The int8 tensor cores (BConv's tensor-core kernel): 1,979 T dense
+# operations/s (a multiply-add is 2) on the H100 SXM (NVIDIA's data sheet,
+# 700 W)
+PEAK_TC_OPS = 1.979e15
 # CUgraphNodeType of a kernel node (cuda.h)
 CU_GRAPH_NODE_TYPE_KERNEL = 0
 # ModUps of ``program``: the multiply's relinearization, two rotations,
@@ -304,23 +312,26 @@ SERVE_BOOT_BTP = dict(n_groups=2, mod_K=3, cheb_degree=27)
 SERVE_BOOT_LEVEL = 7
 # The dry-run phase: processes at a time (the machine's cores), and the
 # two train_4k cells cut in depth.  Mamba and sLSTM layers scan the 4096
-# tokens one at a time, a few DTensor ops a token forward and more
-# backward: on one CPU core jamba's first 8 layers took 188 s and
-# xlstm's 276 s (its eighth is the sLSTM), and the whole depth many
-# minutes (PERF.md, the sweep).  So jamba keeps its first 2 layers (Mamba
-# with MoE, Mamba with the dense FFN) and xlstm its first 7 (mLSTM);
-# their decode cells run whole, the sLSTM's step included
+# tokens one at a time, some tens of local ops a token forward and more
+# backward, each a dispatch on fake tensors: on one CPU core (torch 2.13,
+# the scans as models/partition.py regions) jamba's first 2 layers took
+# 81 s and xlstm's first 7 3.0 s, and xlstm's eighth layer, its first
+# sLSTM, 175 s more (PERF.md §5).  So jamba keeps its first 2 layers
+# (Mamba with MoE, Mamba with the dense FFN) and xlstm its first 7
+# (mLSTM); their decode cells run whole, the sLSTM's step included
 DRYRUN_WORKERS = 8
 DRYRUN_LAYERS = {("jamba_1_5_large_398b", "train_4k"): 2,
                  ("xlstm_1_3b", "train_4k"): 7}
 # The same cells counted on the CPU (tools/dryrun_cpu_counts.py writes
 # the file, with the torch version that counted them).  The partitioned
 # blocks (models/partition.py) place every collective themselves, so the
-# counts should not depend on the torch version: these cells' FLOPs and
-# collective bytes must come within DRYRUN_CPU_RATIO of the CPU's
+# counts should not depend on the torch version: these architectures'
+# cells' FLOPs and collective bytes must come within DRYRUN_CPU_RATIO of
+# the CPU's
 DRYRUN_CPU = Path(__file__).resolve().parent / "tools" \
     / "dryrun_cpu_counts.json"
-DRYRUN_GATED = ("stablelm_3b", "phi3_medium_14b", "command_r_35b")
+DRYRUN_GATED = ("stablelm_3b", "phi3_medium_14b", "command_r_35b",
+                "jamba_1_5_large_398b", "xlstm_1_3b")
 DRYRUN_CPU_RATIO = 1.25
 
 
@@ -377,9 +388,34 @@ def bconv_ops(batch: int, ls: int, ld: int, n: int, g_acc: int) -> int:
                         + REDUCE_OPS * ld * -(-ls // g_acc))
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+# csrc/bconv.cu's tensor-core kernel: source rows a chunk, byte weights
+TC_CHUNK, TC_SUMS = 64, 7
+
+
+def bconv_tc_ops(batch: int, ls: int, ld: int, n: int) -> tuple[int, int]:
+    """(integer multiply results, tensor-core operations) of the
+    tensor-core BConv per column of each batch row: ls scalings, then per
+    chunk of TC_CHUNK source rows and output word TC_SUMS products and a
+    reduction on the integer pipe; on the tensor cores, per 16 columns
+    and 8 destination rows, TC_SUMS m16n8k32 products (2 x 4096
+    operations) a K step of 8 source rows."""
+    chunks = -(-ls // TC_CHUNK)
+    steps = sum(-(-min(TC_CHUNK, ls - c0) // 8)
+                for c0 in range(0, ls, TC_CHUNK))
+    ints = batch * n * (MONT_OPS * ls + chunks * ld * (
+        PRODUCT_OPS * TC_SUMS + REDUCE_OPS))
+    mma = batch * -(-n // 16) * -(-ld // 8) * TC_SUMS * steps
+    return ints, mma * 2 * 16 * 8 * 32
+
+
+def bound(nbytes: float, ops: float, tc_ops: float = 0) -> tuple[float, str]:
+    """(ms, what bounds it): the bytes at PEAK_BYTES, the integer
+    multiply results at PEAK_OPS and the tensor-core operations at
+    PEAK_TC_OPS, whichever takes longest."""
     tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
+    tt = tc_ops / PEAK_TC_OPS * 1e3
+    return (tb, "bytes") if tb >= max(to, tt) else (max(to, tt),
+                                                      "operations")
 
 
 def residues(rng, primes, shape, dev):
@@ -534,10 +570,13 @@ def phase_dryrun(smi: str, device: str = "cuda") -> dict:
         rows.append(row)
         if r["status"] != "ok":
             failed.append((arch, shape, r["status"], ""))
-        if arch in DRYRUN_GATED and shape == "train_4k" and not all(
-                1 / DRYRUN_CPU_RATIO <= v <= DRYRUN_CPU_RATIO
+        if arch in DRYRUN_GATED and not all(
+                v is not None and 1 / DRYRUN_CPU_RATIO <= v <= DRYRUN_CPU_RATIO
                 for v in ratio.values()):
             failed.append((arch, shape, f"card / CPU {ratio}", ""))
+        if row["forced_redistributions"]:
+            failed.append((arch, shape, "forced redistributions "
+                           f"{row['forced_redistributions']}", ""))
     res = {"phase": "dryrun", "cells": len(cells), "ok": len(rows),
            "torch": torch.__version__,
            "mesh": f"single (16, 16), fake process group, {device}",
@@ -563,9 +602,15 @@ def ntt_cost(shape, logn: int) -> tuple[int, float]:
             MONT_OPS * rows * n * (1 + logn / 2))
 
 
-def bconv_cost(batch: int, ls: int, ld: int, n: int,
-               g_acc: int) -> tuple[int, int]:
-    return batch * (ls + ld) * n * 8, bconv_ops(batch, ls, ld, n, g_acc)
+def bconv_cost(batch: int, ls: int, ld: int, n: int, g_acc: int,
+               tensor_core: bool = False) -> tuple[int, ...]:
+    """(bytes, integer multiply results[, tensor-core operations]) of the
+    kernel the shape takes: the tensor-core one for more than 32 source
+    rows or an operand 8 bytes past a 16-byte boundary."""
+    nbytes = batch * (ls + ld) * n * 8
+    if tensor_core:
+        return (nbytes, *bconv_tc_ops(batch, ls, ld, n))
+    return nbytes, bconv_ops(batch, ls, ld, n, g_acc)
 
 
 def fused_ip_cost(shape, n_evk: int, with_pt: bool) -> tuple[int, int]:
@@ -618,9 +663,14 @@ def kernel_row(native, name, lib, kern, plain, cost, shape) -> dict:
                              f"{logged}")
     exact(f"{name} (graph replay)", replay, want, shape)
     b, by = bound(*cost)
+    terms = {"bytes": cost[0] / PEAK_BYTES * 1e3,
+             "integer": cost[1] / PEAK_OPS * 1e3}
+    if len(cost) > 2:
+        terms["tensor_core"] = cost[2] / PEAK_TC_OPS * 1e3
     return {"max_abs_err": err, "ms": cuda_ms(kern),
             "plain_ms": cuda_ms(plain, reps=2, batches=3, hide_host=False),
-            "bound_ms": b, "bound_by": by, "library_ms": None,
+            "bound_ms": b, "bound_by": by, "bound_terms_ms": terms,
+            "library_ms": None,
             "shape": list(shape), "cuda_launches": cuda_launches,
             "cluster": cluster}
 
@@ -676,7 +726,8 @@ def kernel_at(native, P, pc, rng, name: str, dims, primes=None,
             native, name, "bconv", lambda: bconv(x, cc),
             lambda: bconv_plain(x, cc.qhat_inv, cc.src_q, cc.qhat_mod,
                                 cc.dst_q),
-            bconv_cost(x.numel() // (ls * N), ls, ld, N, cc.g_acc), dims)
+            bconv_cost(x.numel() // (ls * N), ls, ld, N, cc.g_acc,
+                       tensor_core=ls > 32 or unaligned), dims)
     if name == "fused_ip":
         shape, n_evk, with_pt = dims[:-2], dims[-2], bool(dims[-1])
         nrot, dnum, l_ext = shape[-4:-1]
@@ -2943,7 +2994,7 @@ def main() -> int:
     }
     dist_launches = dist_res["launches"]["fused_ip"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "cuda_launches", "cluster")
+            "bound_terms_ms", "library_ms", "cuda_launches", "cluster")
     rows = []
     for name, (src, rep, launches) in sources.items():
         r = kern[name]

@@ -7,26 +7,31 @@ Counterpart of the JAX package's ``kernels/bconv`` (``BConvKernelConsts``,
     t_i = x_i * qhat_inv_i mod q_i;   y_j = sum_i t_i * (qhat_i mod d_j) mod d_j
 
 On a CPU tensor ``bconv`` runs the plain version; on a CUDA tensor it
-launches ``csrc/bconv.cu`` once, with the launch geometry that
-``geometry`` picks here.  The kernel takes any number of source rows
-(``CHUNK`` at a time) and an operand that is 8- but not 16-byte
-aligned; it refuses primes from 2^30 up, as the reference's Montgomery
-arithmetic does (``src/repro/kernels/modops.py``).
+launches ``csrc/bconv.cu`` once: ``bconv_kernel``, with the launch
+geometry that ``geometry`` picks here, for at most ``CHUNK`` source rows
+of a 16-byte aligned operand, and ``bconv_tc_kernel`` (the sum on the
+int8 tensor cores, ``TC_CHUNK`` source rows at a time) for more rows or
+an operand that is 8- but not 16-byte aligned.  Both refuse primes from
+2^30 up, as the reference's Montgomery arithmetic does
+(``src/repro/kernels/modops.py``).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.rns import RNSContext
 from repro_torch.kernels import native
 from repro_torch.kernels.modops import (
-    as_u32, lazy_terms, qinv_neg_host, to_mont_host,
+    as_u32, byte_weights_mont, lazy_terms, qinv_neg_host, to_mont_host,
 )
 from repro_torch.kernels.ntt.ops import MAX_PRIME, check_rows
 
 CHUNK = 32  # ``kChunk`` in csrc/bconv.cu: source rows in shared memory
+TC_CHUNK = 64  # ``kTcChunk``: source rows a chunk of the tensor-core kernel
+BYTE_SUMS = 7  # ``kTcSums``: byte weights 0..6 of the tensor-core sums
 COLS = 2  # ``kCols``: columns a thread, one 16-byte load or store a row
 MAX_THREADS = 512  # ``kMaxThreads``
 GROUP_ROWS = (2, 4, 6, 9)  # the instantiations of ``bconv_kernel<G>``
@@ -91,10 +96,36 @@ class BConvConsts:
         # Montgomery form (int32 storage of 32-bit words), for the kernel
         self.qhat_inv_m = dev(as_u32(to_mont_host(qhat_inv, sq)))
         self.cm = dev(as_u32(to_mont_host(qhat_mod, dq[None, :])))
+        # the tensor-core kernel's, laid out for 16-byte copies (its
+        # comment in csrc/bconv.cu): per source row (qhat_inv_i in
+        # Montgomery form, q_i, -q_i^-1, 0); qhat_i mod d_j in normal form,
+        # zero-padded to whole K steps of 8 rows and to ``tc_stride(ld)``
+        # columns; 2^(8k + 32) mod d_j for each byte weight k, then d_j and
+        # -d_j^-1 (the last column repeated into the padding)
+        cs = tc_stride(self.ld)
+        qn = np.array([qinv_neg_host(q) for q in dq], dtype=np.int64)
+        self.tc_src = dev(as_u32(np.stack(
+            [to_mont_host(qhat_inv, sq), sq,
+             [qinv_neg_host(q) for q in sq], np.zeros_like(sq)], 1)))
+        c = np.zeros((-(-self.ls // 8) * 8, cs), dtype=np.int64)
+        c[:self.ls, :self.ld] = qhat_mod
+        self.tc_c = dev(as_u32(c))
+        epi = np.concatenate([byte_weights_mont(dq, BYTE_SUMS), dq[None],
+                              qn[None]])
+        self.tc_epi = dev(as_u32(np.pad(epi, ((0, 0), (0, cs - self.ld)),
+                                        mode="edge")))
         self.src_q32 = dev(as_u32(sq))
         self.src_qn32 = dev(as_u32([qinv_neg_host(q) for q in sq]))
         self.dst_q32 = dev(as_u32(dq))
         self.dst_qn32 = dev(as_u32([qinv_neg_host(q) for q in dq]))
+
+
+def tc_stride(ld: int) -> int:
+    """Row stride of the tensor-core kernel's constants (``tc_stride`` in
+    csrc/bconv.cu): whole tiles of 8 destination rows, padded to 8 mod 32
+    words so that a warp's fragment loads fall in 32 different banks."""
+    n8 = -(-ld // 8) * 8
+    return n8 + (8 - n8 % 32) % 32
 
 
 def bconv_plain(x, qhat_inv, src_q, qhat_mod, dst_q):
@@ -108,8 +139,12 @@ def bconv_plain(x, qhat_inv, src_q, qhat_mod, dst_q):
     return acc
 
 
-def bconv(x: torch.Tensor, c: BConvConsts) -> torch.Tensor:
-    """(..., ls, N) int64 coefficient domain -> (..., ld, N)."""
+def bconv(x: torch.Tensor, c: BConvConsts,
+          kernel: str = "auto") -> torch.Tensor:
+    """(..., ls, N) int64 coefficient domain -> (..., ld, N).  ``kernel``
+    "tensor_core" launches the tensor-core kernel whatever the shape
+    (``tools/ntt_study.py`` times it at the narrow kernel's shapes); the
+    default picks by shape and alignment (the module's docstring)."""
     n = 1 << c.logn
     check_rows("bconv", x, c.ls, n)
     if x.device.type == "cpu":
@@ -117,6 +152,8 @@ def bconv(x: torch.Tensor, c: BConvConsts) -> torch.Tensor:
     native.check_cuda("bconv", x)
     if c.max_prime >= MAX_PRIME:
         raise ValueError(f"bconv: prime {c.max_prime} is not below 2^30")
+    if kernel not in ("auto", "tensor_core"):
+        raise ValueError(f"bconv: unknown kernel {kernel!r}")
     batch = x.numel() // (c.ls * n)
     geo = geometry(batch, c.ls, c.ld, c.logn)
     y = torch.empty(x.shape[:-2] + (c.ld, n), dtype=torch.int64,
@@ -125,8 +162,10 @@ def bconv(x: torch.Tensor, c: BConvConsts) -> torch.Tensor:
         "bconv", "bconv", native.ptr(x), native.ptr(y),
         native.ptr(c.qhat_inv_m), native.ptr(c.src_q32),
         native.ptr(c.src_qn32), native.ptr(c.cm), native.ptr(c.dst_q32),
-        native.ptr(c.dst_qn32), batch, c.ls, c.ld, c.logn, c.g_acc, geo.g,
+        native.ptr(c.dst_qn32), native.ptr(c.tc_src), native.ptr(c.tc_c),
+        native.ptr(c.tc_epi), batch, c.ls, c.ld, c.logn, c.g_acc, geo.g,
         geo.lanes, geo.threads, geo.tiles, geo.groups,
+        int(kernel == "tensor_core"),
         shape=("bconv", tuple(x.shape[:-2]) + (c.ls, c.ld)),
     )
     return y

@@ -32,13 +32,13 @@ so every count below is one device's:
 The port runs each layer eagerly, so these counts already cover every
 layer (the reference's cost analysis counts a scanned layer once).
 
-The embedding lookup, attention, MLA, the MLP, the MoE, the head, the
-loss and the greedy pick run as ``models.partition`` partitions them:
-the plan of the reference's GSPMD partitioner, with every collective
-placed by that module, so their counts do not depend on the torch
-version.  The ops between them (norms, residual adds, the optimizer)
-and the blocks it does not partition (Mamba, mLSTM, sLSTM) go to
-DTensor's own sharding rules.  Where DTensor cannot partition one of
+The embedding lookup, attention, MLA, the MLP, the MoE, Mamba, the
+mLSTM, the sLSTM, the head, the loss and the greedy pick run as
+``models.partition`` partitions them: the plan of the reference's GSPMD
+partitioner, with every collective placed by that module, so their
+counts do not depend on the torch version.  The ops between them
+(norms, residual adds, the optimizer) go to DTensor's own sharding
+rules.  Where DTensor cannot partition one of
 those ops (a view that splits a sharded dimension unevenly, an op
 without a sharding rule), in the forward or the backward pass,
 ``Repartition`` moves that op's DTensor inputs to ``Replicate`` on the

@@ -21,8 +21,9 @@ recurrent states into the cache's tensors IN PLACE and returns them, so
 that a step has no data-dependent shape and no host sync, and can be
 captured in a CUDA graph.
 
-On DTensors (the dry run) the embedding lookup, attention, MLA, the MLP
-and the MoE run as ``models.partition`` partitions them.
+On DTensors (the dry run) the embedding lookup, attention, MLA, the MLP,
+the MoE, Mamba and the mLSTM and sLSTM blocks run as
+``models.partition`` partitions them.
 """
 from __future__ import annotations
 
@@ -489,47 +490,64 @@ def mamba(p, x, cfg: ModelConfig, cache=None):
     scan, which multiplies in another order: equal within float32
     rounding), or one step from the cache's ``ssm`` (B, di, ds) and
     ``conv`` (B, dc - 1, di) states, both updated in place."""
+    if partition.applies(x):
+        return partition.mamba(p, x, cfg, cache)
     B, S, d = x.shape
     di = cfg.mamba_expand * d
-    ds, dc = cfg.mamba_d_state, cfg.mamba_d_conv
+    if cache is not None and S != 1:
+        raise ValueError(f"a decode step takes one token, got {S}")
     xz = x @ p["in_proj"]
     xi, z = xz[..., :di], xz[..., di:]
+    u = mamba_conv(xi, p["conv_w"], None if cache is None else cache["conv"])
+    y = mamba_scan(p, u, z, u @ p["x_proj"], cfg.mamba_d_state,
+                   None if cache is None else cache["ssm"])
+    new_cache = None if cache is None else {
+        "conv": cache["conv"], "ssm": cache["ssm"],
+        "idx": int(cache["idx"]) + 1}
+    return y @ p["out_proj"], new_cache
 
-    if cache is None:
-        pad = torch.zeros((B, dc - 1, di), dtype=xi.dtype, device=x.device)
+
+def mamba_conv(xi, conv_w, state=None):
+    """SiLU of the causal depthwise convolution of ``xi`` (B, S, di) with
+    ``conv_w`` (dc, di) over the sequence: zero history, or the decode
+    state ``state`` (B, dc - 1, di), which is updated in place."""
+    B, S, di = xi.shape
+    dc = conv_w.shape[0]
+    if state is None:
+        pad = torch.zeros((B, dc - 1, di), dtype=xi.dtype, device=xi.device)
         hist = torch.cat([pad, xi], 1)
     else:
-        if S != 1:
-            raise ValueError(f"a decode step takes one token, got {S}")
-        hist = torch.cat([cache["conv"], xi], 1)           # (B, dc, di)
-    conv = sum(hist[:, i:i + S] * p["conv_w"][i] for i in range(dc))
-    u = F.silu(conv)
+        hist = torch.cat([state, xi], 1)                   # (B, dc, di)
+        state.copy_(hist[:, 1:])
+    return F.silu(sum(hist[:, i:i + S] * conv_w[i] for i in range(dc)))
 
-    proj = u @ p["x_proj"]
+
+def mamba_scan(p, u, z, proj, ds: int, state=None):
+    """The selective scan of ``u`` (B, S, di) gated by ``z``: ``proj`` =
+    ``u @ x_proj`` holds B (ds), C (ds) and dt (1); ``p`` the per-channel
+    ``dt_bias``, ``A_log`` and ``D`` of ``u``'s channels.  Over the
+    sequence from a zero state, or one step from ``state`` (B, di, ds),
+    updated in place.  Returns the gated output (B, S, di) in ``z``'s
+    dtype."""
     dt = F.softplus(proj[..., -1:].float() + p["dt_bias"])
     Bm = proj[..., :ds].float()                            # (B, S, ds)
     Cm = proj[..., ds:2 * ds].float()
     A = -torch.exp(p["A_log"])                             # (di, ds)
     a = torch.exp(dt[..., None] * A)                       # (B, S, di, ds)
     b = (dt[..., None] * Bm[:, :, None, :]) * u.float()[..., None]
-    if cache is None:
+    if state is None:
         h = torch.zeros_like(b[:, 0])
         hs = []
-        for t in range(S):
+        for t in range(u.shape[1]):
             h = a[:, t] * h + b[:, t]
             hs.append(h)
         hh = torch.stack(hs, 1)
-        new_cache = None
     else:
-        hh = a * cache["ssm"][:, None] + b
-        cache["ssm"].copy_(hh[:, -1])
-        cache["conv"].copy_(hist[:, 1:])
-        new_cache = {"conv": cache["conv"], "ssm": cache["ssm"],
-                     "idx": int(cache["idx"]) + 1}
+        hh = a * state[:, None] + b
+        state.copy_(hh[:, -1])
     y = torch.einsum("bsdn,bsn->bsd", hh, Cm)
     y = y + u.float() * p["D"]
-    y = y.to(x.dtype) * F.silu(z)
-    return y @ p["out_proj"], new_cache
+    return y.to(z.dtype) * F.silu(z)
 
 
 # ------------------------------- xLSTM ------------------------------------
@@ -560,51 +578,89 @@ def mlstm(p, x, cfg: ModelConfig, cache=None):
     float32, updated in place.  As in the reference, the two forms'
     normalisers differ (max(|sum|, exp(-m)) against max(|n q|, 1)), so
     decode does not reproduce prefill."""
+    if partition.applies(x):
+        return partition.mlstm(p, x, cfg, cache)
     B, S, d = x.shape
     di = cfg.mamba_expand * d
     H = cfg.n_heads
     hd = di // H
     uz = x @ p["up"]
     u, z = uz[..., :di], uz[..., di:]
-    q = (u @ p["wq"]).reshape(B, S, H, hd)
-    # float32, as the reference's division by a numpy scalar promotes it
-    k = (u @ p["wk"]).reshape(B, S, H, hd).float() / math.sqrt(hd)
-    v = (u @ p["wv"]).reshape(B, S, H, hd)
-    gates = (u @ p["wif"].to(u.dtype)).float()
-    ig = gates[..., :H]                                    # input gate
-    fg = F.logsigmoid(gates[..., H:])                      # log forget gate
+    q, k, v = mlstm_heads(u @ p["wq"], u @ p["wk"], u @ p["wv"], H, hd)
+    ig, fg = mlstm_gates(u @ p["wif"].to(u.dtype), H)
 
     if cache is None:
-        # D[b,h,t,s] = F_t - F_s + i_s  (s <= t), stabilised by row max
-        Ft = torch.cumsum(fg, 1).transpose(1, 2)           # (B, H, S)
-        D = Ft[..., :, None] - Ft[..., None, :] \
-            + ig.transpose(1, 2)[..., None, :]
-        mask = torch.ones((S, S), dtype=torch.bool, device=x.device).tril()
-        D = torch.where(mask, D, -math.inf)
-        m = D.amax(-1, keepdim=True)
-        att = torch.einsum("bqhd,bshd->bhqs", q.float(), k) \
-            * torch.exp(D - m)
-        norm = torch.maximum(att.sum(-1, keepdim=True).abs(), torch.exp(-m))
-        out = torch.einsum("bhqs,bshd->bqhd", (att / norm).to(v.dtype), v)
+        w = mlstm_weights(torch.einsum("bqhd,bshd->bhqs", q.float(), k),
+                          ig, fg)
+        out = torch.einsum("bhqs,bshd->bqhd", w.to(v.dtype), v)
         new_cache = None
     else:
         if S != 1:
             raise ValueError(f"a decode step takes one token, got {S}")
-        i_t = torch.exp(ig[:, 0])                          # (B, H)
-        f_t = torch.exp(fg[:, 0])
+        i_t, f_t = torch.exp(ig[:, 0]), torch.exp(fg[:, 0])  # (B, H)
         k0, q0 = k[:, 0], q[:, 0].float()
-        C = cache["C"] * f_t[..., None, None] + i_t[..., None, None] * \
-            torch.einsum("bhd,bhe->bhde", v[:, 0].float(), k0)
-        n = cache["n"] * f_t[..., None] + i_t[..., None] * k0
-        num = torch.einsum("bhde,bhe->bhd", C, q0)
-        den = torch.einsum("bhd,bhd->bh", n, q0).abs().clamp_min(1.0)
-        out = (num / den[..., None]).to(x.dtype)[:, None]
+        C, num = mlstm_matrix_step(cache["C"], k0, v[:, 0].float(), q0,
+                                   i_t, f_t)
+        n, nq = mlstm_norm_step(cache["n"], k0, q0, i_t, f_t)
+        out = (num / nq.abs().clamp_min(1.0)[..., None]).to(x.dtype)[:, None]
         cache["C"].copy_(C)
         cache["n"].copy_(n)
         new_cache = {"C": cache["C"], "n": cache["n"],
                      "idx": int(cache["idx"]) + 1}
-    out = out.reshape(B, S, di) * F.silu(z)
+    out = out.reshape(B, S, -1) * F.silu(z)
     return out @ p["down"], new_cache
+
+
+def mlstm_heads(q, k, v, heads: int, hd: int):
+    """Projected queries, keys and values (B, S, heads * w) as (B, S,
+    heads, w), the keys in float32 scaled by 1 / sqrt(hd) (float32, as
+    the reference's division by a numpy scalar promotes them); ``w`` is
+    ``hd`` or, where the columns hold a slice of each head, less."""
+    B, S = q.shape[:2]
+    return (q.reshape(B, S, heads, -1),
+            k.reshape(B, S, heads, -1).float() / math.sqrt(hd),
+            v.reshape(B, S, heads, -1))
+
+
+def mlstm_gates(g, H: int):
+    """Input gates and log forget gates (B, S, H), float32, from the
+    gate pre-activations ``g`` = u @ wif (B, S, 2H)."""
+    g = g.float()
+    return g[..., :H], F.logsigmoid(g[..., H:])
+
+
+def mlstm_weights(s, ig, fg):
+    """The parallel form's normalised weights (B, H, S, S), float32, from
+    the logits ``s`` = q k (B, H, S, S), the input gates ``ig`` and the
+    log forget gates ``fg`` (B, S, H): D[b,h,t,s] = F_t - F_s + i_s
+    (s <= t), stabilised by its row max m; the weights s exp(D - m)
+    divided by max(|row sum|, exp(-m))."""
+    S = s.shape[-1]
+    Ft = torch.cumsum(fg, 1).transpose(1, 2)               # (B, H, S)
+    D = Ft[..., :, None] - Ft[..., None, :] + ig.transpose(1, 2)[..., None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=s.device).tril()
+    D = torch.where(mask, D, -math.inf)
+    m = D.amax(-1, keepdim=True)
+    att = s * torch.exp(D - m)
+    norm = torch.maximum(att.sum(-1, keepdim=True).abs(), torch.exp(-m))
+    return att / norm
+
+
+def mlstm_matrix_step(C, k0, v0, q0, i_t, f_t):
+    """One recurrent step of the matrix memory C (B, H, dv, dk): f C + i
+    v k^T for the step's keys k0 (B, H, dk) and values v0 (B, H, dv);
+    returns it and its read-out C q0 (B, H, dv)."""
+    C = C * f_t[..., None, None] + i_t[..., None, None] * \
+        torch.einsum("bhd,bhe->bhde", v0, k0)
+    return C, torch.einsum("bhde,bhe->bhd", C, q0)
+
+
+def mlstm_norm_step(n, k0, q0, i_t, f_t):
+    """One recurrent step of the normaliser n (B, H, dk): f n + i k0;
+    returns it and n . q0 (B, H) (the step's denominator before its
+    absolute value)."""
+    n = n * f_t[..., None] + i_t[..., None] * k0
+    return n, torch.einsum("bhd,bhd->bh", n, q0)
 
 
 def init_slstm(cfg: ModelConfig, dtype, generator, device, lead=()):
@@ -615,11 +671,13 @@ def init_slstm(cfg: ModelConfig, dtype, generator, device, lead=()):
             "r": _normal(lead + (d, 4 * d), std, dtype, generator, device)}
 
 
-def _slstm_step(p, h, c, xt):
-    g = xt @ p["w"] + h @ p["r"]
+def slstm_cell(g, c, dtype):
+    """The sLSTM cell on the gate pre-activations ``g`` (B, 4 w), columns
+    [i | f | z | o], and the float32 memory ``c`` (B, w): the new ``h``
+    (in ``dtype``) and ``c``."""
     i, f, z, o = g.float().chunk(4, -1)
     c = torch.sigmoid(f) * c + torch.exp(i.clamp_max(0.0)) * torch.tanh(z)
-    h = (torch.sigmoid(o) * torch.tanh(c)).to(xt.dtype)
+    h = (torch.sigmoid(o) * torch.tanh(c)).to(dtype)
     return h, c
 
 
@@ -627,18 +685,21 @@ def slstm(p, x, cfg: ModelConfig, cache=None):
     """sLSTM (scalar memory): a sequential scan over the tokens, or one
     step from the cache's ``h`` (B, d) and float32 ``c`` (B, d), updated
     in place."""
+    if partition.applies(x):
+        return partition.slstm(p, x, cfg, cache)
     B, S, d = x.shape
     if cache is None:
         h = torch.zeros((B, d), dtype=x.dtype, device=x.device)
         c = torch.zeros((B, d), dtype=torch.float32, device=x.device)
         ys = []
         for t in range(S):
-            h, c = _slstm_step(p, h, c, x[:, t])
+            h, c = slstm_cell(x[:, t] @ p["w"] + h @ p["r"], c, x.dtype)
             ys.append(h)
         return torch.stack(ys, 1), None
     if S != 1:
         raise ValueError(f"a decode step takes one token, got {S}")
-    h, c = _slstm_step(p, cache["h"], cache["c"], x[:, 0])
+    h, c = slstm_cell(x[:, 0] @ p["w"] + cache["h"] @ p["r"], cache["c"],
+                      x.dtype)
     cache["h"].copy_(h)
     cache["c"].copy_(c)
     return h[:, None], {"h": cache["h"], "c": cache["c"],

@@ -6,11 +6,13 @@ axis splits anything (the dry run, ``launch.dryrun``; a ``Trainer`` or
 a restore on a mesh); plain tensors never reach it.  Each block runs as
 a *region*: its DTensor inputs are brought to the placements below, the
 plain block (``layers.attention``, ``layers.mla_attention``,
-``layers.mlp``, ``layers.moe_experts``, ``model._cross_attention``...)
-runs on the local shards of its weights, and its output leaves as a
-DTensor.  This module adds only the collectives, and local arithmetic
-where no plain block exists: a softmax split over cache shards, the
-vocabulary-parallel lookup, loss and pick, and the MoE's slot offset.
+``layers.mlp``, ``layers.moe_experts``, ``model._cross_attention``...),
+or its pieces (``layers.mamba_conv``, ``mamba_scan``, ``mlstm_weights``,
+``slstm_cell``...), runs on the local shards of its weights, and its
+output leaves as a DTensor.  This module adds only the collectives, and
+local arithmetic where no plain block exists: a softmax split over
+cache shards, the vocabulary-parallel lookup, loss and pick, and the
+MoE's slot offset.
 Inside a region every collective is explicit, so the plan is the same
 on every torch version; outside one, DTensor's own sharding rules place
 the norms, the residual adds and the optimizer's elementwise update.
@@ -32,6 +34,16 @@ on ``model``, the batch on the data axes):
   (the cache is sharded on its sequence axis, ``cache_plan``): the new
   token's query, key and value are gathered, the softmax's max and sum
   and the partial outputs are all-reduced;
+- Mamba, the mLSTM and the sLSTM split their channels over ``model``:
+  the column-parallel projection whose columns hold ``[xi | z]``,
+  ``[u | z]`` or ``[i | f | z | o]`` is regrouped by one all-to-all so
+  that each rank holds every piece of its channels (GSPMD's plan moves
+  the same columns with collective-permutes); Mamba's scan needs no
+  collective inside it, the sLSTM gathers ``h`` at every token; the
+  mLSTM's heads follow the plan's split of its columns (whole heads, or
+  a slice of one head's dims whose logits are summed over the ranks
+  that share the head); the output projections are row-parallel, one
+  all-reduce; a decode step updates this rank's shard of each state;
 - the MLP is column- then row-parallel, one all-reduce; the MoE keeps
   each data shard's tokens where they are: every ``model`` rank runs
   its share of the experts on the tokens of its data shard, with the
@@ -57,6 +69,7 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 MODEL = "model"
@@ -175,13 +188,45 @@ class Layout:
 
     # --- collectives inside a region ----------------------------------
 
-    def reduce(self, t: torch.Tensor, op: str = "sum",
-               batch_dim: int = 0) -> torch.Tensor:
-        """All-reduce a local partial over ``model``, in its own dtype."""
+    def reduce(self, t: torch.Tensor, op: str = "sum", batch_dim: int = 0,
+               grad_model=None) -> torch.Tensor:
+        """All-reduce a local partial over ``model``, in its own dtype.
+        ``grad_model=Partial()`` where the ranks use the sum differently:
+        its gradient is then all-reduced on the way back."""
         d = DTensor.from_local(t, self.mesh,
                                self.act(batch_dim, Partial(op)),
                                run_check=False)
-        return d.redistribute(self.mesh, self.act(batch_dim)).to_local()
+        gp = None if grad_model is None else self.act(batch_dim, grad_model)
+        return d.redistribute(self.mesh, self.act(batch_dim)).to_local(
+            grad_placements=gp)
+
+    def sharded(self, w: DTensor, dim: int) -> torch.Tensor:
+        """This rank's shard of weight ``w``, which must be sharded on
+        ``model`` along ``dim`` (a region that splits the block's
+        channels cannot place a weight that is not)."""
+        if w.placements[self.mi] != Shard(dim % w.ndim):
+            raise ValueError(f"a weight of shape {tuple(w.shape)} is "
+                             f"{w.placements[self.mi]} on {MODEL}, not "
+                             f"sharded along dim {dim}")
+        return self.w_in(w, dim)
+
+    def state(self, leaf: DTensor, dim: int | None) -> torch.Tensor:
+        """The local tensor of recurrent-state cache leaf ``leaf``, which
+        must be sharded on ``model`` along ``dim`` (whole on ``model``
+        when ``dim`` is None); a decode step updates it in place."""
+        want = Replicate() if dim is None else Shard(dim % leaf.ndim)
+        if leaf.placements[self.mi] != want:
+            raise ValueError(f"a cache leaf of shape {tuple(leaf.shape)} is "
+                             f"{leaf.placements[self.mi]} on {MODEL}, "
+                             f"not {want}")
+        return leaf.to_local()
+
+    def channels(self, w: DTensor, width: int) -> bool:
+        """Whether weight ``w``'s columns are sharded on ``model`` and
+        ``model`` divides the ``width`` channels that each of its column
+        blocks holds (the recurrent regions then split the channels)."""
+        return w.placements[self.mi] == Shard(w.ndim - 1) \
+            and width % self.m == 0
 
     def gather(self, t: torch.Tensor, dim: int, batch_dim: int = 0,
                grad_model=Partial()) -> torch.Tensor:
@@ -645,6 +690,338 @@ def _counts_before(lay: Layout, counts: torch.Tensor) -> torch.Tensor:
     every = whole.redistribute(lay.mesh,
                                (Replicate(),) * lay.mesh.ndim).to_local()
     return every[:lay.shard].sum(0)
+
+
+# ------------------------ collectives of the scans ---------------------------
+
+def _all_to_all(t, out_splits, in_splits, group):
+    return funcol.wait_tensor(funcol.all_to_all_single(
+        t.contiguous(), out_splits, in_splits, group))
+
+
+def _all_reduce(t, group):
+    return funcol.wait_tensor(funcol.all_reduce(t, "sum", group))
+
+
+class _Regroup(torch.autograd.Function):
+    """This rank's columns of every piece of a concatenation of ``parts``
+    equal pieces whose columns are sharded on ``model`` as a whole (the
+    ``[xi | z]`` of ``in_proj``, the ``[u | z]`` of ``up``, the ``[i | f
+    | z | o]`` of sLSTM's gates): (..., parts * P / m) -> (..., parts *
+    P / m), one all-to-all over ``model`` (GSPMD's plan moves the same
+    columns with collective-permutes); its gradient the reverse one.
+
+    Global chunk ``g`` of P / m columns lies on rank ``g // parts`` and
+    belongs to piece ``g // m`` of rank ``g % m``."""
+
+    @staticmethod
+    def forward(ctx, lay: "Layout", t, parts: int):
+        m, s = lay.m, lay.rank
+        dest = [(s * parts + u) % m for u in range(parts)]
+        order = sorted(range(parts), key=lambda u: dest[u])
+        src = [(s + p * m) // parts for p in range(parts)]
+        ctx.lay, ctx.order, ctx.region = lay, order, region_name()
+        ctx.splits = ([src.count(r) for r in range(m)],
+                      [dest.count(r) for r in range(m)])
+        chunks = t.unflatten(-1, (parts, -1)).movedim(-2, 0)[order]
+        got = _all_to_all(chunks, *ctx.splits, (lay.mesh, lay.mi))
+        return got.movedim(0, -2).flatten(-2)
+
+    @staticmethod
+    def backward(ctx, g):
+        recv, sent = ctx.splits
+        parts = len(ctx.order)
+        with _region(f"{ctx.region} backward"):
+            back = _all_to_all(g.unflatten(-1, (parts, -1)).movedim(-2, 0),
+                               sent, recv, (ctx.lay.mesh, ctx.lay.mi))
+        out = torch.empty_like(back)
+        out[ctx.order] = back
+        return None, out.movedim(0, -2).flatten(-2), None
+
+
+# (id of a mesh, k) -> (the mesh, its head-group mesh): made once a mesh,
+# as making one makes process groups; keyed by the mesh object, not its
+# layout (a mesh equal to one of a process group since destroyed is not it)
+_GROUP_MESHES: dict = {}
+
+
+def _group_mesh(lay: "Layout", k: int):
+    """``lay``'s mesh with ``model`` split into (m / k, k): the second
+    axis runs over the k consecutive ``model`` ranks that share a head."""
+    key = (id(lay.mesh), k)
+    if key not in _GROUP_MESHES:
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+        from torch.distributed.device_mesh import DeviceMesh
+
+        names = list(lay.mesh.mesh_dim_names)
+        names[lay.mi:lay.mi + 1] = [f"{MODEL}_heads", f"{MODEL}_in_head"]
+        # the mesh's rank tensor is a real one (the dry run's step runs
+        # under a fake tensor mode)
+        with unset_fake_temporarily():
+            ranks = lay.mesh.mesh
+            shape = list(ranks.shape)
+            shape[lay.mi:lay.mi + 1] = [lay.m // k, k]
+            _GROUP_MESHES[key] = (lay.mesh, DeviceMesh(
+                lay.mesh.device_type, ranks.reshape(shape),
+                mesh_dim_names=tuple(names)))
+    return _GROUP_MESHES[key][1], lay.mi + 1
+
+
+class _GroupSum(torch.autograd.Function):
+    """The sum of a head's partials over the ranks that share the head
+    (each holds a slice of its dims); its consumers are alike on those
+    ranks, so the gradient passes back as it is."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        return _all_reduce(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GroupGrad(torch.autograd.Function):
+    """The identity on a value that the ranks sharing a head hold alike
+    and use each on its slice of the head's dims: the gradient is summed
+    over those ranks."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group, ctx.region = group, region_name()
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        with _region(f"{ctx.region} backward"):
+            return _all_reduce(g, ctx.group), None
+
+
+class _GroupOnce(torch.autograd.Function):
+    """The identity on a value that every ``model`` rank holds alike but
+    only the ranks of one head group use, alike: one rank of the group
+    passes the gradient back, so that a sum over ``model`` counts it
+    once."""
+
+    @staticmethod
+    def forward(ctx, t, first: bool):
+        ctx.first = first
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.first else torch.zeros_like(g)), None
+
+
+def _whole_state(lay: "Layout", cache, names):
+    """The local state leaves ``names`` of a block every rank runs whole."""
+    return None if cache is None else {
+        **{n: lay.state(cache[n], None) for n in names}, "idx": cache["idx"]}
+
+
+def _next_cache(cache, names):
+    """A decode step's new cache: the same state leaves (updated in place)
+    and the next index."""
+    return None if cache is None else {
+        **{n: cache[n] for n in names}, "idx": int(cache["idx"]) + 1}
+
+
+# --------------------------------- Mamba ------------------------------------
+
+_MAMBA = ("in_proj", "conv_w", "x_proj", "dt_bias", "A_log", "D", "out_proj")
+
+
+def mamba(p, x: DTensor, cfg, cache=None):
+    """``layers.mamba`` with its channels split over ``model``: the
+    column-parallel ``in_proj`` regrouped so that each rank holds the
+    ``xi`` and ``z`` of its channels (``_Regroup``), the convolution and
+    the scan on those channels (no collective inside the scan), the
+    row-parallel ``x_proj`` (a partial of dt, B and C, all-reduced) and
+    ``out_proj`` (all-reduced); a decode step updates this rank's shard
+    of the ``conv`` and ``ssm`` states.  Every rank runs the whole block
+    when ``model`` does not divide the channels."""
+    from repro_torch.models import layers as L
+
+    lay = Layout(x)
+    di = cfg.mamba_expand * cfg.d_model
+    if cache is not None and x.shape[1] != 1:
+        raise ValueError(f"a decode step takes one token, got {x.shape[1]}")
+    with _region("mamba"):
+        if not lay.channels(p["in_proj"], di):
+            out, _ = L.mamba(_whole(lay, p, _MAMBA),
+                             lay.x_in(x, grad_model=Replicate()), cfg,
+                             _whole_state(lay, cache, ("conv", "ssm")))
+        else:
+            xl = lay.x_in(x)
+            xz = _Regroup.apply(lay, xl @ lay.sharded(p["in_proj"], -1),
+                                2)
+            xi, z = xz.chunk(2, -1)
+            u = L.mamba_conv(xi, lay.sharded(p["conv_w"], -1),
+                             None if cache is None
+                             else lay.state(cache["conv"], -1))
+            proj = lay.reduce(u @ lay.sharded(p["x_proj"], -2),
+                              grad_model=Partial())
+            w = {"dt_bias": lay.sharded(p["dt_bias"], -1),
+                 "A_log": lay.sharded(p["A_log"], -2),
+                 "D": lay.sharded(p["D"], -1)}
+            y = L.mamba_scan(w, u, z, proj, cfg.mamba_d_state,
+                             None if cache is None
+                             else lay.state(cache["ssm"], -2))
+            out = lay.reduce(y @ lay.sharded(p["out_proj"], -2))
+    return lay.out(out), _next_cache(cache, ("conv", "ssm"))
+
+
+# --------------------------------- xLSTM ------------------------------------
+
+_MLSTM = ("up", "wq", "wk", "wv", "wif", "down")
+
+
+def mlstm(p, x: DTensor, cfg, cache=None):
+    """``layers.mlstm`` with its inner channels split over ``model``, as
+    GSPMD's plan splits them: ``up`` column-parallel and regrouped into
+    this rank's ``u`` and ``z`` channels, ``u`` gathered for the
+    column-parallel q, k and v, the gates row-parallel (all-reduced).
+    In the parallel form each rank holds its columns of q, k and v:
+    whole heads when the heads divide ``model``; else a slice of one
+    head's dims, whose logits are summed over the ranks that share the
+    head and whose weights' gradient is summed back over them.  The
+    output is row-parallel through ``down`` (all-reduced).  A decode step
+    gathers q, k and v, updates this rank's shard of ``C`` (its value
+    dims) and ``n`` (its key dims), all-reduces n . q and gathers C q.
+    Every rank runs the whole block when ``model`` divides neither the
+    channels nor (in the parallel form) the heads or their dims."""
+    from repro_torch.models import layers as L
+
+    lay = Layout(x)
+    B, S, d = x.shape
+    if cache is not None and S != 1:
+        raise ValueError(f"a decode step takes one token, got {S}")
+    di, H = cfg.mamba_expand * d, cfg.n_heads
+    hd = di // H
+    split = lay.channels(p["up"], di) and (
+        cache is not None or H % lay.m == 0 or lay.m % H == 0)
+    with _region("mlstm"):
+        if not split:
+            out, _ = L.mlstm(_whole(lay, p, _MLSTM),
+                             lay.x_in(x, grad_model=Replicate()), cfg,
+                             _whole_state(lay, cache, ("C", "n")))
+            return lay.out(out), _next_cache(cache, ("C", "n"))
+        xl = lay.x_in(x)
+        uz = _Regroup.apply(lay, xl @ lay.sharded(p["up"], -1), 2)
+        u_r, z = uz.chunk(2, -1)
+        u = lay.gather(u_r, -1)
+        gates = u_r @ lay.sharded(p["wif"], -2).to(u.dtype)
+        if cache is None:
+            ig, fg = L.mlstm_gates(lay.reduce(gates, grad_model=Partial()), H)
+            out = _mlstm_parallel(lay, p, u, ig, fg, H, hd)
+        else:
+            ig, fg = L.mlstm_gates(lay.reduce(gates), H)
+            out = _mlstm_decode(lay, p, u, ig, fg, H, hd, cache, x.dtype)
+        out = out.reshape(*z.shape[:2], -1) * torch.nn.functional.silu(z)
+        out = lay.reduce(out @ lay.sharded(p["down"], -2))
+    return lay.out(out), _next_cache(cache, ("C", "n"))
+
+
+def _mlstm_parallel(lay: Layout, p, u, ig, fg, H: int, hd: int):
+    """The parallel form on this rank's columns of q, k and v: heads
+    [h0, h0 + hl), or (hl = 1) a slice of head h0's dims."""
+    from repro_torch.models import layers as L
+
+    hl = max(H // lay.m, 1)
+    h0 = lay.rank * H // lay.m
+    q, k, v = L.mlstm_heads(*(u @ lay.sharded(p[n], -1)
+                              for n in ("wq", "wk", "wv")), hl, hd)
+    ig, fg = ig[..., h0:h0 + hl], fg[..., h0:h0 + hl]
+    s = torch.einsum("bqhd,bshd->bhqs", q.float(), k)
+    share = lay.m // H if lay.m > H else 1
+    if share > 1:
+        group = _group_mesh(lay, share)
+        s = _GroupSum.apply(s, group)
+        first = lay.rank % share == 0
+        ig, fg = _GroupOnce.apply(ig, first), _GroupOnce.apply(fg, first)
+    w = L.mlstm_weights(s, ig, fg).to(v.dtype)
+    if share > 1:
+        w = _GroupGrad.apply(w, group)
+    return torch.einsum("bhqs,bshd->bqhd", w, v)
+
+
+def _mlstm_decode(lay: Layout, p, u, ig, fg, H: int, hd: int, cache, dtype):
+    """One recurrent step on this rank's shards of ``C`` (value dims)
+    and ``n`` (key dims); returns this rank's output columns."""
+    from repro_torch.models import layers as L
+
+    q, k, v = L.mlstm_heads(*(lay.gather(u @ lay.sharded(p[n], -1), -1)
+                              for n in ("wq", "wk", "wv")), H, hd)
+    C, n = (cache[name] for name in ("C", "n"))
+    cs = C.placements[lay.mi] == Shard(C.ndim - 2)
+    ns = n.placements[lay.mi] == Shard(n.ndim - 1)
+    Cl = lay.state(C, -2 if cs else None)
+    nl = lay.state(n, -1 if ns else None)
+    c0, n0 = (lay.rank * Cl.shape[-2] if cs else 0,
+              lay.rank * nl.shape[-1] if ns else 0)
+    i_t, f_t = torch.exp(ig[:, 0]), torch.exp(fg[:, 0])
+    k0, q0 = k[:, 0], q[:, 0].float()
+    v0 = v[:, 0].float()[..., c0:c0 + Cl.shape[-2]]
+    Cn, num = L.mlstm_matrix_step(Cl, k0, v0, q0, i_t, f_t)
+    kn, qn = (t[..., n0:n0 + nl.shape[-1]] for t in (k0, q0))
+    nn_, nq = L.mlstm_norm_step(nl, kn, qn, i_t, f_t)
+    if cs:
+        num = lay.gather(num, -1)
+    if ns:
+        nq = lay.reduce(nq)
+    Cl.copy_(Cn)
+    nl.copy_(nn_)
+    out = (num / nq.abs().clamp_min(1.0)[..., None]).to(dtype)[:, None]
+    w = out.shape[-1] * H // lay.m
+    return out.flatten(-2)[..., lay.rank * w:(lay.rank + 1) * w]
+
+
+def slstm(p, x: DTensor, cfg, cache=None):
+    """``layers.slstm`` with its channels split over ``model``: ``w``
+    and ``r`` column-parallel, the gates of each step regrouped into this
+    rank's channels of i, f, z and o (``_Regroup``), the cell on those
+    channels, and ``h`` gathered for the next step's ``h @ r``; the
+    outputs are gathered once after the scan.  A decode step updates this
+    rank's shard of the ``h`` and ``c`` states.  Every rank runs the
+    whole block when ``model`` does not divide the channels."""
+    from repro_torch.models import layers as L
+
+    lay = Layout(x)
+    B, S, d = x.shape
+    if cache is not None and S != 1:
+        raise ValueError(f"a decode step takes one token, got {S}")
+    with _region("slstm"):
+        if not (lay.channels(p["w"], d) and lay.channels(p["r"], d)):
+            out, _ = L.slstm(_whole(lay, p, ("w", "r")),
+                             lay.x_in(x, grad_model=Replicate()), cfg,
+                             _whole_state(lay, cache, ("h", "c")))
+            return lay.out(out), _next_cache(cache, ("h", "c"))
+        xl = lay.x_in(x)
+        w, r = lay.sharded(p["w"], -1), lay.sharded(p["r"], -1)
+
+        def step(xt, h, c):
+            g = _Regroup.apply(lay, (xt @ w + h @ r).float(), 4)
+            return L.slstm_cell(g, c, x.dtype)
+
+        if cache is None:
+            h = torch.zeros((xl.shape[0], d), dtype=x.dtype, device=xl.device)
+            c = torch.zeros((xl.shape[0], d // lay.m), dtype=torch.float32,
+                            device=xl.device)
+            hs = []
+            for t in range(S):
+                h_r, c = step(xl[:, t], h, c)
+                hs.append(h_r)
+                if t + 1 < S:
+                    h = lay.gather(h_r, -1)
+            # the outputs are alike on every rank downstream
+            out = lay.gather(torch.stack(hs, 1), -1, grad_model=Replicate())
+            return lay.out(out), None
+        hl, cl = lay.state(cache["h"], -1), lay.state(cache["c"], -1)
+        h_r, c = step(xl[:, 0], lay.gather(hl, -1), cl)
+        hl.copy_(h_r)
+        cl.copy_(c)
+        out = lay.gather(h_r, -1)[:, None]
+    return lay.out(out), _next_cache(cache, ("h", "c"))
 
 
 # ------------------------- loss and greedy decoding -------------------------

@@ -3,12 +3,16 @@
 ModDown converts from the k primes of P, with k >= alpha
 (``core/params.py``); a dnum = 1 chain of the paper's size (logN = 16,
 L = 35, alpha = k = 36) converts 36 source rows into 36.  The CUDA kernel
-(``csrc/bconv.cu``) takes them ``CHUNK`` = 32 at a time; here the
-wrapper's checks, its plain version and the kernel's lazy reduction
-(``modops.bconv_lazy_host``, summed across the chunk boundary as the
-kernel sums it) are held against the JAX package's uint64 oracle at
-36 and 64 source rows.  The kernel itself runs on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``'s ``kernels`` phase).
+(``csrc/bconv.cu``) takes more than ``CHUNK`` = 32 rows with its
+tensor-core kernel; here the wrapper's checks, its plain version, the
+narrow kernel's lazy reduction (``modops.bconv_lazy_host``) and the
+tensor-core kernel's arithmetic (``modops.bconv_tc_host``: byte
+products, int32 sums by byte weight, one Montgomery recombination an
+output word, residues carried across chunks of source rows) are held
+against the JAX package's uint64 oracle at 36 and 64 source rows, at 4,
+and at the largest prime below 2^30.  The kernels themselves run on the
+card (``tests/test_torch_cuda.py``, ``chip_smoke.py``'s ``kernels``
+phase).
 """
 import numpy as np
 import pytest
@@ -24,12 +28,15 @@ from repro_torch.core.params import CKKSParams  # noqa: E402
 from repro_torch.core.rns import RNSContext  # noqa: E402
 from repro_torch.kernels import modops  # noqa: E402
 from repro_torch.kernels.bconv.ops import (  # noqa: E402
-    CHUNK, BConvConsts, bconv, bconv_plain, geometry,
+    CHUNK, BConvConsts, bconv, bconv_plain, geometry, tc_stride,
 )
 
 # a dnum = 1 chain: alpha = k = 36 primes of P, at a ring small enough
 # for the oracle's uint64 arithmetic on the CPU
 WIDE = dict(logN=6, L=35, alpha=36, k=36)
+# the largest primes below 2^30 (2^30 - 35, 2^30 - 41): the widest
+# residues and constants the kernels take
+LARGEST = (1073741789, 1073741783)
 
 
 def _x(rng, c, lead=()):
@@ -99,3 +106,83 @@ def test_wide_bconv_unaligned_operand_on_the_cpu():
     assert odd.data_ptr() % 16 == 8
     assert torch.equal(bconv(odd, c), bconv_plain(
         x, c.qhat_inv, c.src_q, c.qhat_mod, c.dst_q))
+
+
+def _oracle(x, src, dst):
+    """The reference's uint64 oracle on (ls, N) residues."""
+    rrns = RefRNS(RefParams(**WIDE))
+    return np.asarray(bconv_oracle(jnp.asarray(x.astype(np.uint32)),
+                                   tuple(src), tuple(dst), rrns)
+                      ).astype(np.int64)
+
+
+def _tc_mirror(x, src, dst, chunk=64):
+    """``modops.bconv_tc_host`` with the wrapper's constants for primes
+    ``src`` -> ``dst`` (any primes below 2^30), from Python integers."""
+    prod = 1
+    for q in src:
+        prod *= q
+    qhat_inv = [pow(prod // q, -1, q) for q in src]
+    qhat_mod = np.array([[(prod // q) % d for d in dst] for q in src],
+                        dtype=np.int64)
+    qinv_m = [int(modops.to_mont_host(np.array([v]), q)[0])
+              for v, q in zip(qhat_inv, src)]
+    return modops.bconv_tc_host(x, np.array(qinv_m, dtype=np.uint64),
+                                np.array(src), qhat_mod, np.array(dst),
+                                chunk).astype(np.int64)
+
+
+@pytest.mark.parametrize("ls,ld,chunk", [(36, 36, 64), (64, 7, 64),
+                                         (33, 1, 64), (4, 36, 64),
+                                         (36, 36, 8)])
+def test_tensor_core_mirror_equals_oracle(ls, ld, chunk):
+    """The tensor-core kernel's arithmetic (``modops.bconv_tc_host``, on
+    the wrapper's own constants) equals the reference's oracle, on random
+    and on all-(q-1) residues: ModDown of a dnum = 1 chain (36 -> 36),
+    64 and 33 source rows, 4, and 36 rows in chunks of 8 (the residues
+    carried from chunk to chunk, as past the kernel's 64); and the
+    wrapper lays the kernel's constants out as the kernel reads them."""
+    p = CKKSParams(**dict(WIDE, k=max(ls, 36), alpha=36))
+    src, dst = p.p_primes[:ls], p.q_chain(p.L)[:ld]
+    c = BConvConsts(RNSContext(p), src, dst, "cpu")
+    # the kernel's constants: zero-padded to whole K steps and tc_stride
+    # columns; the byte weights, d and -d^-1 with the last column repeated
+    tc_c = c.tc_c.numpy().view(np.uint32)
+    assert tc_c.shape == (-(-ls // 8) * 8, tc_stride(ld))
+    assert np.array_equal(tc_c[:ls, :ld], c.qhat_mod.numpy())
+    assert not tc_c[ls:].any() and not tc_c[:, ld:].any()
+    epi = c.tc_epi.numpy().view(np.uint32).astype(np.int64)
+    assert np.array_equal(epi[:7, :ld], modops.byte_weights_mont(
+        dst, 7))
+    assert np.array_equal(epi[7:, :ld], np.stack(
+        [c.dst_q.numpy(), c.dst_qn32.numpy().view(np.uint32)]))
+    assert (epi[:, ld:] == epi[:, ld - 1:ld]).all()
+    assert np.array_equal(c.tc_src.numpy().view(np.uint32)[:, :3].T, np.stack(
+        [c.qhat_inv_m.numpy().view(np.uint32), c.src_q.numpy(),
+         c.src_qn32.numpy().view(np.uint32)]))
+    rng = np.random.default_rng(ls * 10 + ld)
+    rand = _x(rng, c).numpy()
+    top = np.repeat(c.src_q.numpy()[:, None] - 1, p.N, 1)
+    for x in (rand, top):
+        got = modops.bconv_tc_host(
+            x, c.qhat_inv_m.numpy().view(np.uint32), c.src_q.numpy(),
+            tc_c[:ls, :ld], c.dst_q.numpy(), chunk)
+        np.testing.assert_array_equal(got.astype(np.int64),
+                                      _oracle(x, src, dst))
+
+
+def test_tensor_core_mirror_at_the_largest_prime():
+    """Residues and constants just below 2^30: a source prime and a
+    destination prime of 2^30 - 35 and 2^30 - 41, beside four of the
+    chain's, on random and on all-(q-1) residues (the bytes' top values,
+    the int32 sums' and the recombination's largest operands)."""
+    p = CKKSParams(**WIDE)
+    src = (LARGEST[0],) + tuple(p.p_primes[:3])
+    dst = (LARGEST[1],) + tuple(p.q_chain(p.L)[:3])
+    rng = np.random.default_rng(30)
+    q = np.array(src, dtype=np.int64)[:, None]
+    rand = rng.integers(0, 1 << 62, (4, p.N)) % q
+    top = np.repeat(q - 1, p.N, 1)
+    for x in (rand, top):
+        np.testing.assert_array_equal(_tc_mirror(x, src, dst),
+                                      _oracle(x, src, dst))

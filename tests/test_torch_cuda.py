@@ -139,6 +139,36 @@ def test_cuda_bconv_wide_and_unaligned(cuda, logn):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("logn", [4, 8, 16])
+def test_cuda_bconv_tensor_core_chunks(cuda, logn):
+    """The tensor-core kernel where no other test takes it: more source
+    rows than one chunk of ``TC_CHUNK`` (its double-buffered loads and
+    the residues carried across chunks), a ring smaller than its
+    coefficient tile (logN = 4), and the narrow kernel's shapes forced
+    onto it (``kernel="tensor_core"``); one CUDA launch a call, equal to
+    the plain version word for word, on random and on all-(q-1)
+    residues."""
+    p = CKKSParams(logN=logn, L=35, alpha=36, k=140)
+    rns = RNSContext(p)
+    rng = np.random.default_rng(logn + 140)
+    native.build_all()
+    for ls, ld, kernel in ((65, 9, "auto"), (140, 36, "auto"),
+                           (12, 36, "tensor_core"), (1, 35, "tensor_core"),
+                           (36, 36, "auto")):
+        c = BConvConsts(rns, p.p_primes[:ls], p.q_chain(35)[:ld], cuda)
+        for lead in ((), (3,)):
+            rand = _res(rng, c.src, lead + (ls, p.N)).to(cuda)
+            top = (c.src_q[:, None] - 1).expand(rand.shape).contiguous()
+            for x in (rand, top):
+                native.launch_log("bconv")
+                got = bconv(x, c, kernel=kernel)
+                assert native.launch_log("bconv") == (1, [1])
+                assert torch.equal(got, bconv_plain(
+                    x, c.qhat_inv, c.src_q, c.qhat_mod, c.dst_q)), \
+                    (ls, ld, lead, kernel)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("logn", [10, 12, 14, 15, 16])
 def test_cuda_ntt_natural_order(cuda, logn):
     """One CUDA launch a call, natural order at both ends, equal to the

@@ -11,12 +11,21 @@ Both sides run the same cells on a small mesh of 8 devices laid out as
 - the port in another subprocess on a ``fake`` group of 8 ranks
   (``launch.dryrun.dry_run``, as ``tests/test_torch_dryrun_small.py``).
 
-The cells are four REDUCED configs cut to one layer, each with its
-train step (batch 8 x 32) and its decode step (batch 8, a 64-token
-cache): phi3-medium-14b (4 heads, 2 kv heads), the same with 4 kv
-heads, minicpm3 (MLA) and moonshot (MoE).  With one layer the reference
-takes its ``reps <= 1`` branch, so its ``cost_analysis`` covers the
-whole step and needs no scan correction.
+The cells are six REDUCED configs, each with its train step (batch 8 x
+32) and its decode step (batch 8, a 64-token cache): cut to one layer,
+phi3-medium-14b (4 heads, 2 kv heads), the same with 4 kv heads,
+minicpm3 (MLA), moonshot (MoE) and jamba (Mamba with its MoE); and
+xlstm at its two REDUCED layers (mLSTM, then sLSTM; 2 heads over the
+4-way ``model`` axis).  With one repetition of the layer pattern the
+reference takes its ``reps <= 1`` branch (no scan over layers).
+
+The sLSTM is a ``lax.scan`` over the tokens: in the HLO its collectives
+appear once, in the ``while`` body, and run once a token.  The
+reference's plan bytes count each collective of a ``while`` body times
+the loop's trip count, read from the loop's condition (its ROOT compares
+the counter with a constant: 32), as ``tools/reference_collectives.py``'s
+``plan_bytes`` does; Mamba's ``associative_scan`` is unrolled and needs
+no such scaling.  ``cost_analysis`` FLOPs are taken as XLA gives them.
 
 The two sides count by different conventions, so the ratios are held
 to bands, not to 1:
@@ -41,7 +50,18 @@ to bands, not to 1:
   axis GSPMD itself permutes).  A reading that moves needs its cause
   found (``collectives_by_op``) before its record changes.
 - Where the heads divide the ``model`` axis (phi3 with 4 kv heads,
-  minicpm3), the port's cells force no redistribution.
+  minicpm3), the port's cells force no redistribution; nor do jamba's
+  and xlstm's, whose Mamba, mLSTM and sLSTM blocks run as regions.
+- jamba and xlstm have bands of their own, below the others': GSPMD
+  regroups the ``[xi | z]``, ``[u | z]`` and ``[i | f | z | o]`` columns
+  with collective-permutes whose SPMD output counts on every device
+  (40,960 B forward in jamba's Mamba, where the port's all-to-all
+  receives 16,384), routes every token on every device (as in
+  moonshot), all-reduces the gradients of the projections feeding a
+  gather where the port reduce-scatters them, and inside the sLSTM's
+  ``while`` body all-reduces the gradients of ``w`` and ``r`` over
+  ``data`` at every token (524,288 B of xlstm's 1,344,120) and gathers
+  each token's input; the port reduces those gradients once.
 """
 import json
 import os
@@ -64,6 +84,8 @@ CELLS = [
     ("phi3_kv4", "phi3_medium_14b", {"n_kv_heads": 4}),
     ("minicpm3", "minicpm3_4b", {}),
     ("moonshot", "moonshot_v1_16b_a3b", {}),
+    ("jamba", "jamba_1_5_large_398b", {}),
+    ("xlstm", "xlstm_1_3b", {"n_layers": 2}),
 ]
 
 # port / reference bands: (train collective bytes, decode collective bytes)
@@ -72,6 +94,8 @@ COLL_BAND = {
     "phi3_kv4": ((0.5, 1.5), (0.5, 2.0)),
     "minicpm3": ((0.5, 1.5), (0.5, 2.0)),
     "moonshot": ((0.5, 2.0), (0.5, 2.0)),
+    "jamba": ((0.3, 2.0), (0.25, 2.0)),
+    "xlstm": ((0.2, 2.0), (0.3, 2.0)),
 }
 FLOP_BAND = (0.5, 1.5)
 # port / reference as recorded: (cell, kind) -> (collective bytes, FLOPs)
@@ -84,9 +108,15 @@ RECORDED = {
     ("minicpm3", "decode"): (1.014, 0.769),
     ("moonshot", "train"): (0.522, 0.836),
     ("moonshot", "decode"): (0.51, 0.635),
+    ("jamba", "train"): (0.489, 0.783),
+    ("jamba", "decode"): (0.349, 0.709),
+    ("xlstm", "train"): (0.277, 1.148),
+    ("xlstm", "decode"): (0.51, 0.802),
 }
 DRIFT = 1.1
 NOTHING_FORCED = ("phi3_kv4", "minicpm3")
+# the cells whose recurrent blocks run as regions
+SCAN_CELLS = ("jamba", "xlstm")
 
 REFERENCE = textwrap.dedent("""
     import json
@@ -131,8 +161,8 @@ PORT = textwrap.dedent("""
     try:
         mesh = M.make_small_mesh(8, device="cpu")
         for name, arch, over in json.loads(sys.argv[1]):
-            cfg = dataclasses.replace(reduced_config(arch), n_layers=1,
-                                      **over)
+            cfg = dataclasses.replace(reduced_config(arch),
+                                      **{"n_layers": 1, **over})
             out[name] = {}
             for sh in (TRAIN, DECODE):
                 r = dryrun.dry_run(cfg, sh, mesh, device="cpu")
@@ -208,3 +238,16 @@ def test_flops_within_band(both, cell, kind):
 def test_nothing_forced_where_heads_divide(both, cell):
     for kind in ("train", "decode"):
         assert both[1][cell][kind]["forced"] == {}, (cell, kind)
+
+
+@pytest.mark.parametrize("cell", SCAN_CELLS)
+def test_nothing_forced_in_the_scans(both, cell):
+    """Mamba, the mLSTM and the sLSTM run as regions: nothing is forced,
+    and each region issues collectives of its own."""
+    for kind in ("train", "decode"):
+        port = both[1][cell][kind]
+        assert port["forced"] == {}, (cell, kind, port["forced"])
+        mixers = ("mamba",) if cell == "jamba" else ("mlstm", "slstm")
+        for region in mixers:
+            assert port["by_op"].get(f"region {region}", {}).get("bytes"), \
+                (cell, kind, region, port["by_op"])

@@ -7,8 +7,8 @@ turn: 2 x 2 and 1 x 4.  On each mesh every case below runs in float32
 twice on the same inputs (drawn from one seeded generator on every
 rank): plain, and on DTensors placed by ``launch/plan.py``'s plans
 (parameters, batch, decode cache), where the embedding, attention, MLA,
-the MLP, the MoE, the head, the loss and the greedy pick run as
-``models.partition`` regions.  Held, at 1e-5 of each tensor's max
+the MLP, the MoE, Mamba, the mLSTM, the sLSTM, the head, the loss and
+the greedy pick run as ``models.partition`` regions.  Held, at 1e-5 of each tensor's max
 magnitude (floored at 1e-2): the loss and the gradient of every
 parameter leaf (``value_and_grad``), the prefill logits, a decode step's
 logits and updated cache, and (exactly) the next tokens of
@@ -20,8 +20,13 @@ The cases reach every branch of the regions: heads that divide
 ``model`` (kv heads shared evenly, unevenly, or one for several ranks),
 heads that do not (query rows split over ``model``, or every rank the
 whole block when the rows do not divide either), MLA, MoE with and
-without a dense residual FFN, M-RoPE, a sliding-window ring buffer, and
-whisper's encoder and cross attention.
+without a dense residual FFN, M-RoPE, a sliding-window ring buffer,
+whisper's encoder and cross attention, Mamba (jamba, with its MoE and
+attention layers; its ``conv`` and ``ssm`` states), and the xLSTM
+blocks (their ``C``, ``n``, ``h`` and ``c`` states) with 2 heads (a
+head's dims split over the ranks that share it on 1 x 4), 4 heads (whole
+heads on each rank) and 6 heads (the parallel form whole on every rank,
+the decode step split).
 """
 import json
 import os
@@ -55,7 +60,21 @@ CASES = [
     ("whisper", "whisper_base", {}, 8),
     ("whisper_h6", "whisper_base",
      {"n_heads": 6, "n_kv_heads": 6, "head_dim": 16}, 8),
+    ("jamba", "jamba_1_5_large_398b", {}, 8),
+    ("xlstm", "xlstm_1_3b", {}, 8),
+    ("xlstm_h4", "xlstm_1_3b", {"n_heads": 4, "n_kv_heads": 4}, 8),
+    ("xlstm_h6", "xlstm_1_3b", {"n_heads": 6, "n_kv_heads": 6, "d_model": 48},
+     8),
 ]
+# the regions each architecture's step must run, beyond the embedding,
+# the head, the loss and the greedy pick: (mixers, feed-forward blocks)
+REGIONS = {
+    "minicpm3_4b": (("mla",), ("mlp",)),
+    "moonshot_v1_16b_a3b": (("attention",), ("moe",)),
+    "arctic_480b": (("attention",), ("moe",)),
+    "jamba_1_5_large_398b": (("mamba", "attention"), ("moe", "mlp")),
+    "xlstm_1_3b": (("mlstm", "slstm"), ()),
+}
 RTOL, FLOOR = 1e-5, 1e-2
 
 RANKS = textwrap.dedent("""
@@ -239,9 +258,8 @@ def results(tmp_path_factory):
 def test_partitioned_step_equals_plain(results, mesh, case):
     res = results[f"{mesh}/{case}"]
     arch = next(c[1] for c in CASES if c[0] == case)
-    mixer = "mla" if arch.startswith("minicpm3") else "attention"
-    ffn = "moe" if arch in ("moonshot_v1_16b_a3b", "arctic_480b") else "mlp"
-    for region in ("embed", mixer, ffn, "head", "loss", "argmax"):
+    mixers, ffns = REGIONS.get(arch, (("attention",), ("mlp",)))
+    for region in ("embed", *mixers, *ffns, "head", "loss", "argmax"):
         assert region in res["regions"], (region, res["regions"])
     errors = res["errors"]
     assert any(k.startswith("grad") for k in errors)

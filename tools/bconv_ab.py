@@ -1,6 +1,6 @@
-"""Time the BConv kernel of a checkout at the paper's ModDown and rescale
-shapes, to hold two versions of the kernel against each other on one
-card.
+"""Time the BConv kernels of a checkout at the paper's ModDown and rescale
+shapes and at the ModDown of a dnum = 1 chain, to hold two versions of
+the kernels against each other on one card.
 
     python3 tools/bconv_ab.py TREE
 
@@ -10,12 +10,18 @@ lists); its ``src/repro_torch`` is imported and its kernels are built
 under its own ``build/``.  Needs a CUDA card.  At PAPER_PARAMS
 (logN=16): ModDown converts the k = 12 primes of P of both accumulators
 into the 36 primes of the chain, (2, 12) -> (2, 36); a rescale converts
-the last prime into the 35 below it, (1, 1) -> (1, 35).  Each result is
-held equal to ``bconv_plain`` first; then five medians of
-``kernels.timing.cuda_ms`` each.  Prints one JSON line: the tree, the
-median of the five for each shape, and all five.  Run two trees in
-turns in one call (A, B, B, A) to compare them.
+the last prime into the 35 below it, (1, 1) -> (1, 35).  A chain of the
+same size with one digit (alpha = k = 36) converts 36 primes into 36 at
+its ModDown, (2, 36) -> (2, 36) (``dnum1``).  Where the tree's ``bconv``
+can be told to (``kernel="tensor_core"``), the ModDown shape is also
+timed on the tensor-core kernel (``moddown_tensor_core``), which that
+shape does not take by default.  Each result is held equal to
+``bconv_plain`` first; then five medians of ``kernels.timing.cuda_ms``
+each.  Prints one JSON line: the tree, the median of the five for each
+shape, and all five.  Run two trees in turns in one call (A, B, B, A)
+to compare them.
 """
+import inspect
 import json
 import statistics
 import sys
@@ -27,6 +33,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.core.params import PAPER_PARAMS as P  # noqa: E402
+from repro_torch.core.params import CKKSParams  # noqa: E402
 from repro_torch.core.rns import RNSContext  # noqa: E402
 from repro_torch.kernels import native  # noqa: E402
 from repro_torch.kernels.bconv.ops import BConvConsts, bconv, bconv_plain  # noqa: E402
@@ -46,13 +53,22 @@ def main() -> None:
 
     out = {}
     l = P.L + 1
-    for name, src, ld, lead in (("moddown", P.p_primes, l, (2,)),
-                                ("rescale", P.q_primes[l - 1:l], l - 1, (1,))):
-        cc = BConvConsts(rns, src, P.q_chain(ld - 1), dev)
+    P1 = CKKSParams(logN=P.logN, L=P.L, alpha=l, k=l)
+    tc = "kernel" in inspect.signature(bconv).parameters
+    cases = [("moddown", rns, P.p_primes, P.q_chain(P.L), (2,), {}),
+             ("rescale", rns, P.q_primes[l - 1:l], P.q_chain(l - 2), (1,),
+              {}),
+             ("dnum1", RNSContext(P1), P1.p_primes, P1.q_chain(P1.L), (2,),
+              {})]
+    if tc:
+        cases.append(("moddown_tensor_core", rns, P.p_primes,
+                      P.q_chain(P.L), (2,), {"kernel": "tensor_core"}))
+    for name, r, src, dst, lead, kw in cases:
+        cc = BConvConsts(r, src, dst, dev)
         x = res(src, lead + (len(src), P.N))
-        assert torch.equal(bconv(x, cc), bconv_plain(
+        assert torch.equal(bconv(x, cc, **kw), bconv_plain(
             x, cc.qhat_inv, cc.src_q, cc.qhat_mod, cc.dst_q))
-        out[name] = [cuda_ms(lambda: bconv(x, cc)) for _ in range(5)]
+        out[name] = [cuda_ms(lambda: bconv(x, cc, **kw)) for _ in range(5)]
     print(json.dumps({"tree": tree, **{k: statistics.median(v)
                                        for k, v in out.items()},
                       "all": out}))

@@ -12,14 +12,19 @@ Needs a CUDA card.  Prints one JSON line per measurement:
     digit cut to one source row (the reduce's re-reads gone, results not
     checked), and a device copy of the forward's int64 input as a
     yardstick for the memory;
-  * ``bconv`` (alone with ``--bconv``): the BConv kernel at the ModDown
-    shape (2, 12) -> (2, 36) and the rescale shape (1) -> (35),
-    N = 2^16, with every group size G it is built for and 32 or 64
-    lanes a tile, checked against the plain version, with the registers
-    and spills of each G; beside them, a device copy of the output as a
-    yardstick for the memory, and the default geometry built with
-    ``-DHE2_BCONV_NO_LOAD``, ``-DHE2_BCONV_NO_STORE`` or both (results not
-    checked), to see what the loads, the stores and the arithmetic cost;
+  * ``bconv`` (alone with ``--bconv``): BConv at the ModDown shape
+    (2, 12) -> (2, 36), the rescale shape (1) -> (35) and the ModDown of
+    a dnum = 1 chain (2, 36) -> (2, 36), N = 2^16: where ``bconv_kernel``
+    takes the shape, every group size G it is built for with 32 or 64
+    lanes a tile; ``bconv_tc_kernel`` (the tensor-core kernel) at every
+    shape; each checked against the plain version, with the registers
+    and spills of each kernel; beside them, a device copy of the output
+    as a yardstick for the memory, and the shape's default kernel (and
+    the tensor-core one) built with ``-DHE2_BCONV_NO_LOAD``,
+    ``-DHE2_BCONV_NO_STORE`` or both (results not checked), to see what
+    the loads, the stores and the arithmetic cost, the tensor-core one
+    also without its products or its recombination (``PROBES``) and
+    with 2 or 8 warps a block (checked);
   * ``phases``: where one forward and one inverse launch spend their
     time, from the device timestamps that ``ntt.cu`` built with
     ``-DHE2_PROBE`` records at the phase boundaries (``PROBE`` in
@@ -108,15 +113,29 @@ def wrappers(src: str) -> None:
     emit({"wrappers": row})
 
 
+# the paper's chain with one digit (chip_smoke.DNUM1_KW)
+DNUM1_KW = dict(logN=16, L=35, alpha=36, k=36)
+
+
+# -D flags of the study builds of bconv.cu
+PROBES = (("HE2_BCONV_NO_LOAD",), ("HE2_BCONV_NO_STORE",),
+          ("HE2_BCONV_NO_LOAD", "HE2_BCONV_NO_STORE"), ("HE2_TC_NO_MMA",),
+          ("HE2_TC_NO_EPILOGUE",), ("HE2_TC_WARPS=2",), ("HE2_TC_WARPS=8",))
+# the probes whose results are checked (the others leave work out)
+CHECKED = ("WARPS",)
+
+
 def ptxas_bconv(text: str) -> dict:
-    """{G: [registers, spill store bytes]} from ``ptxas -v`` of bconv.cu."""
+    """{G (or "tc"): [registers, spill store bytes]} from ``ptxas -v`` of
+    bconv.cu, for bconv_kernel<G> and bconv_tc_kernel."""
     out = {}
     for part in text.split("Compiling entry function")[1:]:
-        g = re.search(r"bconv_kernelILi(\d+)E", part)
+        g = re.search(r"bconv_kernelILi(\d+)E|bconv_tc_kernel", part)
         regs = re.search(r"Used (\d+) registers", part)
         spill = re.search(r"(\d+) bytes spill stores", part)
         if g and regs and spill:
-            out[int(g.group(1))] = [int(regs.group(1)), int(spill.group(1))]
+            out[g.group(1) or "tc"] = [int(regs.group(1)),
+                                       int(spill.group(1))]
     return out
 
 
@@ -125,9 +144,11 @@ def bconv_study(P, pc, rng, xp) -> None:
     32 or 64 lanes a tile, at the ModDown shape (``xp``, the P limbs of
     both accumulators) and the rescale shape, each checked against the
     plain version; with the registers and spills of each group size."""
+    from repro_torch.core.params import CKKSParams
+    from repro_torch.core.rns import RNSContext
     from repro_torch.kernels import native
     from repro_torch.kernels.bconv.ops import (
-        GROUP_ROWS, BConvConsts, bconv_plain, geometry,
+        CHUNK, GROUP_ROWS, BConvConsts, bconv_plain, geometry,
     )
     from repro_torch.kernels.timing import cuda_ms
 
@@ -138,44 +159,78 @@ def bconv_study(P, pc, rng, xp) -> None:
     dev, N = xp.device, P.N
     base, kp = P.q_chain(P.L), P.p_primes
     x1 = residues(rng, base[-1:], (1, N), dev)
-    for name, src, dst, xx in (("moddown", kp, base, xp),
-                               ("rescale", base[-1:], base[:-1], x1)):
-        c = BConvConsts(pc.rns, src, dst, dev)
+    # ModDown of a dnum = 1 chain: (2, 36) -> (2, 36)
+    P1 = CKKSParams(**DNUM1_KW)
+    rns1 = RNSContext(P1)
+    x36 = residues(rng, P1.p_primes, (2, P1.k, N), dev)
+    for name, rns, src, dst, xx in (
+            ("moddown", pc.rns, kp, base, xp),
+            ("rescale", pc.rns, base[-1:], base[:-1], x1),
+            ("moddown_dnum1", rns1, P1.p_primes, P1.q_chain(P1.L), x36)):
+        c = BConvConsts(rns, src, dst, dev)
         want = bconv_plain(xx, c.qhat_inv, c.src_q, c.qhat_mod, c.dst_q)
         yy = torch.empty_like(want)
         batch = xx.numel() // (c.ls * N)
-        row = {"bconv": name, "shape": list(xx.shape[:-1]) + [c.ld],
-               "default": geometry(batch, c.ls, c.ld, P.logN)._asdict()}
-        for g, lanes in itertools.product(GROUP_ROWS, (32, 64)):
-            geo = geometry(batch, c.ls, c.ld, P.logN, g, lanes)
-            fn = (lambda geo=geo: native.invoke(
-                lib_bc, "bconv", xx.data_ptr(), yy.data_ptr(),
+
+        def launch(lib, geo, path):
+            return lambda: native.invoke(
+                lib, "bconv", xx.data_ptr(), yy.data_ptr(),
                 c.qhat_inv_m.data_ptr(), c.src_q32.data_ptr(),
-                c.src_qn32.data_ptr(), c.cm.data_ptr(),
-                c.dst_q32.data_ptr(), c.dst_qn32.data_ptr(), batch, c.ls,
-                c.ld, P.logN, c.g_acc, geo.g, geo.lanes, geo.threads,
-                geo.tiles, geo.groups))
+                c.src_qn32.data_ptr(), c.cm.data_ptr(), c.dst_q32.data_ptr(),
+                c.dst_qn32.data_ptr(), c.tc_src.data_ptr(),
+                c.tc_c.data_ptr(), c.tc_epi.data_ptr(), batch, c.ls, c.ld,
+                P.logN, c.g_acc, geo.g, geo.lanes, geo.threads, geo.tiles,
+                geo.groups, path)
+
+        def checked(fn, what):
             yy.zero_()
             fn()
             torch.cuda.synchronize()
             if not torch.equal(yy, want):
-                raise AssertionError(f"bconv {name} {geo}")
-            row[f"g{g}_l{lanes}_ms"] = cuda_ms(fn, reps=20)
-        row["copy_output_ms"] = cuda_ms(lambda: yy.copy_(want), reps=20)
-        # the default geometry built without its loads, its stores or both
+                raise AssertionError(f"bconv {name} {what}")
+            return cuda_ms(fn, reps=20)
+
         geo = geometry(batch, c.ls, c.ld, P.logN)
-        for probe in (("HE2_BCONV_NO_LOAD",), ("HE2_BCONV_NO_STORE",),
-                      ("HE2_BCONV_NO_LOAD", "HE2_BCONV_NO_STORE")):
-            paths, _ = native.compile_libs(["bconv"], defines=probe)
+        row = {"bconv": name, "shape": list(xx.shape[:-1]) + [c.ld],
+               "default": geo._asdict(),
+               "default_kernel": ("bconv_kernel" if c.ls <= CHUNK
+                                  else "bconv_tc_kernel")}
+        if c.ls <= CHUNK:  # the narrow kernel's geometries
+            for g, lanes in itertools.product(GROUP_ROWS, (32, 64)):
+                gg = geometry(batch, c.ls, c.ld, P.logN, g, lanes)
+                row[f"g{g}_l{lanes}_ms"] = checked(launch(lib_bc, gg, 0), gg)
+        # the tensor-core kernel at this shape, whatever the default
+        row["tensor_core_ms"] = checked(launch(lib_bc, geo, 1), "tensor core")
+        row["copy_output_ms"] = cuda_ms(lambda: yy.copy_(want), reps=20)
+        # the default kernel and the tensor-core one built without their
+        # loads, their stores or both; the tensor-core one also without
+        # its products (HE2_TC_NO_MMA) or its recombination
+        # (HE2_TC_NO_EPILOGUE), and with 2 or 8 warps a block (checked: a
+        # wrong result is recorded)
+        for probe in PROBES:
+            tag = "+".join(p.replace("HE2_BCONV_", "").replace("HE2_", "")
+                           .lower() for p in probe)
+            try:
+                paths, rep = native.compile_libs(["bconv"], defines=probe)
+            except RuntimeError as e:  # a study build that does not compile
+                row["tensor_core_" + tag + "_ms"] = f"build failed: {e}"[:300]
+                continue
+            if "bconv" in rep:
+                emit({"bconv_probe": probe,
+                      "regs_spills": ptxas_bconv(rep["bconv"]["ptxas"])})
             lib = ctypes.CDLL(str(paths["bconv"]))
-            row["+".join(p[10:].lower() for p in probe) + "_ms"] = cuda_ms(
-                lambda: native.invoke(
-                    lib, "bconv", xx.data_ptr(), yy.data_ptr(),
-                    c.qhat_inv_m.data_ptr(), c.src_q32.data_ptr(),
-                    c.src_qn32.data_ptr(), c.cm.data_ptr(),
-                    c.dst_q32.data_ptr(), c.dst_qn32.data_ptr(), batch,
-                    c.ls, c.ld, P.logN, c.g_acc, geo.g, geo.lanes,
-                    geo.threads, geo.tiles, geo.groups), reps=20)
+            tc_only = probe[0].startswith("HE2_TC")
+            if not tc_only:
+                row[tag + "_ms"] = cuda_ms(launch(lib, geo, 0), reps=20)
+            if tc_only or c.ls <= CHUNK:
+                fn = launch(lib, geo, 1)
+                try:
+                    row["tensor_core_" + tag + "_ms"] = (
+                        checked(fn, probe)
+                        if any(k in probe[0] for k in CHECKED)
+                        else cuda_ms(fn, reps=20))
+                except AssertionError as e:
+                    row["tensor_core_" + tag + "_ms"] = f"wrong: {e}"
         emit(row)
 
 

@@ -6,7 +6,8 @@ small 8-device mesh, tuple-shaped ones included.
 
 Arguments: an architecture, JSON overrides of its REDUCED config (cut to
 one layer here, as ``tests/test_torch_dryrun_vs_reference.py`` cuts it),
-and ``train`` (batch 8 x 32) or ``decode`` (batch 8, a 64-token cache).
+and ``train`` (batch 8 x 32) or ``decode`` (batch 8, a 64-token cache);
+an ``n_layers`` among the overrides replaces the cut.
 Prints one line a collective of the compiled HLO (kind, output bytes,
 shape, replica groups, the op it came from), then the totals three ways:
 
@@ -15,7 +16,9 @@ shape, replica groups, the op it came from), then the totals three ways:
   tuple-shaped collectives that XLA's combiners make);
 - ``every_collective``: every collective of the compiled HLO;
 - ``plan``: every collective of the HLO right after SPMD partitioning,
-  GSPMD's own plan in the step's dtypes.  XLA's CPU backend then moves
+  GSPMD's own plan in the step's dtypes, each collective of a ``while``
+  body (a ``lax.scan``: the sLSTM's) times the loop's trip count, read
+  from its condition.  XLA's CPU backend then moves
   16-bit collectives as float32 (its ``all-reduce-promotion`` and
   ``float-normalization-bf16`` passes), which a GPU backend does not,
   so the compiled HLO's bf16 collectives count twice their bytes.
@@ -57,7 +60,7 @@ def compiled_step(arch: str, over: dict, kind: str,
     opts = None if dump_to is None else {
         "xla_dump_to": dump_to, "xla_dump_hlo_pass_re": "spmd-partitioning"}
     mesh = make_small_mesh(8)
-    cfg = dataclasses.replace(reduced_config(arch), n_layers=1, **over)
+    cfg = dataclasses.replace(reduced_config(arch), **{"n_layers": 1, **over})
     params = jax.eval_shape(lambda: init_params(cfg, jax.random.PRNGKey(0)))
     p_plan = plan_mod.param_plan(cfg, mesh, params)
     with mesh:
@@ -101,12 +104,69 @@ def collectives(text: str):
     return out
 
 
+def computations(text: str) -> dict[str, list[str]]:
+    """The lines of each computation of HLO ``text``, by name."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"^(?:ENTRY\s+)?%([\w.\-]+)\s*\(.*\{\s*$", line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+        elif name is not None:
+            out[name].append(line)
+    return out
+
+
+def trip_count(cond: list[str]) -> int:
+    """Iterations of a ``while`` whose condition computation is ``cond``:
+    its ROOT compares the counter (from 0) LT a constant, as the loops of
+    ``lax.scan`` do."""
+    consts = dict(re.findall(r"%([\w.\-]+) = s32\[\] constant\((\d+)\)",
+                             "\n".join(cond)))
+    for line in cond:
+        m = re.search(r"ROOT .*compare\(%[\w.\-]+, %([\w.\-]+)\), "
+                      r"direction=LT", line)
+        if m and m.group(1) in consts:
+            return int(consts[m.group(1)])
+    raise ValueError("no trip count in a while condition")
+
+
+def loop_multipliers(text: str) -> dict[str, int]:
+    """How often each computation runs in one step: 1, or for a while
+    body its loop's trip count times its caller's multiplier."""
+    comps = computations(text)
+    mult = {name: 1 for name in comps}
+    loops = []
+    for name, lines in comps.items():
+        for line in lines:
+            m = re.search(r" while\(.*condition=%([\w.\-]+), "
+                          r"body=%([\w.\-]+)", line)
+            if m:
+                loops.append((name, m.group(2), trip_count(comps[m.group(1)])))
+    for _ in loops:  # nested loops settle within len(loops) passes
+        for caller, body, trips in loops:
+            mult[body] = trips * mult[caller]
+    return mult
+
+
+def scaled_collectives(text: str):
+    """(kind, output bytes, computation, times it runs a step) of every
+    collective of HLO ``text``: a collective inside a ``while`` body
+    (``lax.scan``: the sLSTM's scan over the tokens) appears once in the
+    text and runs once an iteration."""
+    mult = loop_multipliers(text)
+    return [(kind, nbytes, name, mult[name])
+            for name, lines in computations(text).items()
+            for kind, nbytes, _, _ in collectives("\n".join(lines))]
+
+
 def plan_bytes(dump_to: str) -> int:
-    """Output bytes of every collective GSPMD placed: the HLO that
+    """Output bytes of every collective GSPMD placed, a collective in a
+    loop's body counted once an iteration: the HLO that
     ``compiled_step(..., dump_to)`` wrote right after SPMD partitioning."""
     path, = glob.glob(f"{dump_to}/*after_spmd-partitioning*")
     with open(path) as f:
-        return sum(c[1] for c in collectives(f.read()))
+        return sum(n * k for _, n, _, k in scaled_collectives(f.read()))
 
 
 def main() -> None:
