@@ -212,7 +212,7 @@ bconv_kernel(const longlong2* __restrict__ x, longlong2* __restrict__ y,
 // 1979 TOPS dense).  bconv_tc_host in kernels/modops.py repeats this
 // arithmetic on the host.
 #ifndef HE2_TC_WARPS  // study builds (tools/ntt_study.py --bconv) vary it
-#define HE2_TC_WARPS 4
+#define HE2_TC_WARPS 8
 #endif
 constexpr int kTcWarps = HE2_TC_WARPS;
 constexpr int kTcCoefs = 16 * kTcWarps;  // coefficients a block

@@ -24,7 +24,7 @@ Needs a CUDA card.  Prints one JSON line per measurement:
     ``-DHE2_BCONV_NO_STORE`` or both (results not checked), to see what
     the loads, the stores and the arithmetic cost, the tensor-core one
     also without its products or its recombination (``PROBES``) and
-    with 2 or 8 warps a block (checked);
+    with 4 or 16 warps a block (checked);
   * ``phases``: where one forward and one inverse launch spend their
     time, from the device timestamps that ``ntt.cu`` built with
     ``-DHE2_PROBE`` records at the phase boundaries (``PROBE`` in
@@ -120,7 +120,7 @@ DNUM1_KW = dict(logN=16, L=35, alpha=36, k=36)
 # -D flags of the study builds of bconv.cu
 PROBES = (("HE2_BCONV_NO_LOAD",), ("HE2_BCONV_NO_STORE",),
           ("HE2_BCONV_NO_LOAD", "HE2_BCONV_NO_STORE"), ("HE2_TC_NO_MMA",),
-          ("HE2_TC_NO_EPILOGUE",), ("HE2_TC_WARPS=2",), ("HE2_TC_WARPS=8",))
+          ("HE2_TC_NO_EPILOGUE",), ("HE2_TC_WARPS=4",), ("HE2_TC_WARPS=16",))
 # the probes whose results are checked (the others leave work out)
 CHECKED = ("WARPS",)
 
@@ -205,7 +205,7 @@ def bconv_study(P, pc, rng, xp) -> None:
         # the default kernel and the tensor-core one built without their
         # loads, their stores or both; the tensor-core one also without
         # its products (HE2_TC_NO_MMA) or its recombination
-        # (HE2_TC_NO_EPILOGUE), and with 2 or 8 warps a block (checked: a
+        # (HE2_TC_NO_EPILOGUE), and with 4 or 16 warps a block (checked: a
         # wrong result is recorded)
         for probe in PROBES:
             tag = "+".join(p.replace("HE2_BCONV_", "").replace("HE2_", "")
