@@ -42,6 +42,8 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <mutex>
+#include <vector>
 
 #include "launch_log.cuh"
 #include "modarith.cuh"
@@ -482,6 +484,50 @@ static int tc_stride(long long ld) {
   return n8 + (8 - n8 % 32 + 32) % 32;
 }
 
+// As many blocks of the tensor-core kernel `kernel` as the current device
+// holds at once with `smem` bytes of shared memory each, in *grid; the
+// first call for a (device, kernel, smem) asks the occupancy (and raises
+// the kernel's shared-memory limit if smem exceeds every earlier size),
+// later ones read the answer kept here.
+static cudaError_t tc_grid(TcKernel kernel, size_t smem, long long* grid) {
+  struct Entry {
+    int dev;
+    TcKernel kernel;
+    size_t smem;
+    long long grid;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> seen;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  size_t limit = 0;  // the kernel's shared-memory limit on dev, once set
+  for (const Entry& x : seen) {
+    if (x.dev != dev || x.kernel != kernel) continue;
+    if (x.smem == smem) {
+      *grid = x.grid;
+      return cudaSuccess;
+    }
+    limit = std::max(limit, x.smem);
+  }
+  if (smem > limit &&
+      (e = cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                int(smem))) != cudaSuccess)
+    return e;
+  int sms = 0, per_sm = 0;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess ||
+      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, 32 * kTcWarps, smem)) != cudaSuccess)
+    return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *grid = 1LL * per_sm * sms;
+  seen.push_back({dev, kernel, smem, *grid});
+  return cudaSuccess;
+}
+
 // Geometry from the wrapper (kernels/bconv/ops.py: geometry) for
 // bconv_kernel: g destination rows a group (2, 4, 6 or 9), `groups` =
 // ceil(ld / g), `lanes` column pairs a tile and `tiles` tiles a row (lanes *
@@ -490,10 +536,10 @@ static int tc_stride(long long ld) {
 // Montgomery form, (ls, ld); gacc source rows go into a sum before it is
 // reduced.  bconv_tc_kernel takes tc_src, tc_c and tc_epi (its comment says
 // their layout; cs = tc_stride(ld)) and sets its own geometry: batch *
-// ceil(N / kTcCoefs) blocks of 32 * kTcWarps threads.  `path` 0 takes
-// bconv_kernel for at most kChunk source rows of a 16-byte aligned operand
-// and the tensor-core kernel otherwise; 1 takes the tensor-core kernel
-// whatever the shape (tools/ntt_study.py times it so).  x must be 8-byte
+// ceil(N / kTcCoefs) blocks of 32 * kTcWarps threads.  At most kChunk
+// source rows of a 16-byte aligned operand take bconv_kernel, the rest the
+// tensor-core kernel (every shape, in a -DHE2_BCONV_TC_ONLY study build:
+// tools/ntt_study.py --bconv, tools/bconv_ab.py).  x must be 8-byte
 // aligned, y 16-byte aligned, the tc_* arrays 16-byte aligned.  One launch
 // a call.
 extern "C" int bconv(const int64_t* x, int64_t* y, const uint32_t* qhat_inv,
@@ -504,20 +550,25 @@ extern "C" int bconv(const int64_t* x, int64_t* y, const uint32_t* qhat_inv,
                      long long batch, long long ls, long long ld,
                      long long logn, long long gacc, long long g,
                      long long lanes, long long threads, long long tiles,
-                     long long groups, long long path, cudaStream_t st) {
+                     long long groups, cudaStream_t st) {
   const int lane_bits = log2_exact(lanes), tile_bits = log2_exact(tiles);
   const long long blocks = batch * tiles;
   if (!kernel_for(g) || ls < 1 || ld < 1 || logn < 1 || gacc < 1 ||
       lane_bits < 0 || tile_bits < 0 || threads < lanes ||
       threads > kMaxThreads || threads % lanes ||
       lanes * kCols * tiles != (1LL << logn) || groups != (ld + g - 1) / g ||
-      blocks < 1 || blocks > 0x7fffffffLL || (path != 0 && path != 1) ||
-      ls > (1LL << 20) || reinterpret_cast<uintptr_t>(x) % 8 ||
+      blocks < 1 || blocks > 0x7fffffffLL || ls > (1LL << 20) ||
+      reinterpret_cast<uintptr_t>(x) % 8 ||
       reinterpret_cast<uintptr_t>(y) % 16)
     return cudaErrorInvalidValue;
   const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0;
   cudaError_t e;
-  if (path == 0 && ls <= kChunk && aligned) {
+#ifdef HE2_BCONV_TC_ONLY  // study builds: every shape on the tensor cores
+  constexpr bool narrow = false;
+#else
+  constexpr bool narrow = true;
+#endif
+  if (narrow && ls <= kChunk && aligned) {
     const size_t smem =
         size_t(ls * lanes) * (sizeof(longlong2) + sizeof(uint2)) +
         size_t(ls) * sizeof(uint4) +
@@ -543,19 +594,9 @@ extern "C" int bconv(const int64_t* x, int64_t* y, const uint32_t* qhat_inv,
          reinterpret_cast<uintptr_t>(tc_epi)) % 16)
       return cudaErrorInvalidValue;
     const TcKernel kernel = tc_kernel_for(ls);
-    e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (e != cudaSuccess) return e;
-    // as many blocks as the card holds at once, each looping over items
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
-        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess ||
-        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, 32 * kTcWarps, smem)) != cudaSuccess)
-      return e;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    const long long grid = std::min<long long>(items, 1LL * per_sm * sms);
+    long long grid = 0;
+    if ((e = tc_grid(kernel, smem, &grid)) != cudaSuccess) return e;
+    grid = std::min(items, grid);  // blocks loop over the items
     kernel<<<unsigned(grid), 32 * kTcWarps, smem, st>>>(
         x, y, reinterpret_cast<const uint4*>(tc_src), tc_c, tc_epi, int(ls),
         int(ld), int(logn), tc_bits, items, cs, int(aligned));

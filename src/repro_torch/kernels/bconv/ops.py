@@ -139,12 +139,8 @@ def bconv_plain(x, qhat_inv, src_q, qhat_mod, dst_q):
     return acc
 
 
-def bconv(x: torch.Tensor, c: BConvConsts,
-          kernel: str = "auto") -> torch.Tensor:
-    """(..., ls, N) int64 coefficient domain -> (..., ld, N).  ``kernel``
-    "tensor_core" launches the tensor-core kernel whatever the shape
-    (``tools/ntt_study.py`` times it at the narrow kernel's shapes); the
-    default picks by shape and alignment (the module's docstring)."""
+def bconv(x: torch.Tensor, c: BConvConsts) -> torch.Tensor:
+    """(..., ls, N) int64 coefficient domain -> (..., ld, N)."""
     n = 1 << c.logn
     check_rows("bconv", x, c.ls, n)
     if x.device.type == "cpu":
@@ -152,8 +148,6 @@ def bconv(x: torch.Tensor, c: BConvConsts,
     native.check_cuda("bconv", x)
     if c.max_prime >= MAX_PRIME:
         raise ValueError(f"bconv: prime {c.max_prime} is not below 2^30")
-    if kernel not in ("auto", "tensor_core"):
-        raise ValueError(f"bconv: unknown kernel {kernel!r}")
     batch = x.numel() // (c.ls * n)
     geo = geometry(batch, c.ls, c.ld, c.logn)
     y = torch.empty(x.shape[:-2] + (c.ld, n), dtype=torch.int64,
@@ -165,7 +159,6 @@ def bconv(x: torch.Tensor, c: BConvConsts,
         native.ptr(c.dst_qn32), native.ptr(c.tc_src), native.ptr(c.tc_c),
         native.ptr(c.tc_epi), batch, c.ls, c.ld, c.logn, c.g_acc, geo.g,
         geo.lanes, geo.threads, geo.tiles, geo.groups,
-        int(kernel == "tensor_core"),
         shape=("bconv", tuple(x.shape[:-2]) + (c.ls, c.ld)),
     )
     return y

@@ -43,7 +43,8 @@ on ``model``, the batch on the data axes):
   mLSTM's heads follow the plan's split of its columns (whole heads, or
   a slice of one head's dims whose logits are summed over the ranks
   that share the head); the output projections are row-parallel, one
-  all-reduce; a decode step updates this rank's shard of each state;
+  all-reduce; a decode step updates this rank's shard of each state.
+  A block whose channels ``model`` does not divide raises;
 - the MLP is column- then row-parallel, one all-reduce; the MoE keeps
   each data shard's tokens where they are: every ``model`` rank runs
   its share of the experts on the tokens of its data shard, with the
@@ -221,12 +222,16 @@ class Layout:
                              f"not {want}")
         return leaf.to_local()
 
-    def channels(self, w: DTensor, width: int) -> bool:
-        """Whether weight ``w``'s columns are sharded on ``model`` and
-        ``model`` divides the ``width`` channels that each of its column
-        blocks holds (the recurrent regions then split the channels)."""
-        return w.placements[self.mi] == Shard(w.ndim - 1) \
-            and width % self.m == 0
+    def channels(self, block: str, w: DTensor, width: int) -> None:
+        """Raise unless weight ``w``'s columns are sharded on ``model``
+        and ``model`` divides the ``width`` channels that each of its
+        column blocks holds: a recurrent region splits its channels over
+        ``model`` and cannot place ``block`` otherwise."""
+        if w.placements[self.mi] != Shard(w.ndim - 1) or width % self.m:
+            raise ValueError(
+                f"{block}: cannot split {width} channels of a weight "
+                f"{tuple(w.shape)} ({w.placements[self.mi]}) over {MODEL} "
+                f"of size {self.m}")
 
     def gather(self, t: torch.Tensor, dim: int, batch_dim: int = 0,
                grad_model=Partial()) -> torch.Tensor:
@@ -813,12 +818,6 @@ class _GroupOnce(torch.autograd.Function):
         return (g if ctx.first else torch.zeros_like(g)), None
 
 
-def _whole_state(lay: "Layout", cache, names):
-    """The local state leaves ``names`` of a block every rank runs whole."""
-    return None if cache is None else {
-        **{n: lay.state(cache[n], None) for n in names}, "idx": cache["idx"]}
-
-
 def _next_cache(cache, names):
     """A decode step's new cache: the same state leaves (updated in place)
     and the next index."""
@@ -838,36 +837,31 @@ def mamba(p, x: DTensor, cfg, cache=None):
     the scan on those channels (no collective inside the scan), the
     row-parallel ``x_proj`` (a partial of dt, B and C, all-reduced) and
     ``out_proj`` (all-reduced); a decode step updates this rank's shard
-    of the ``conv`` and ``ssm`` states.  Every rank runs the whole block
-    when ``model`` does not divide the channels."""
+    of the ``conv`` and ``ssm`` states.  Raises when ``model`` does not
+    divide the channels."""
     from repro_torch.models import layers as L
 
     lay = Layout(x)
     di = cfg.mamba_expand * cfg.d_model
     if cache is not None and x.shape[1] != 1:
         raise ValueError(f"a decode step takes one token, got {x.shape[1]}")
+    lay.channels("mamba", p["in_proj"], di)
     with _region("mamba"):
-        if not lay.channels(p["in_proj"], di):
-            out, _ = L.mamba(_whole(lay, p, _MAMBA),
-                             lay.x_in(x, grad_model=Replicate()), cfg,
-                             _whole_state(lay, cache, ("conv", "ssm")))
-        else:
-            xl = lay.x_in(x)
-            xz = _Regroup.apply(lay, xl @ lay.sharded(p["in_proj"], -1),
-                                2)
-            xi, z = xz.chunk(2, -1)
-            u = L.mamba_conv(xi, lay.sharded(p["conv_w"], -1),
-                             None if cache is None
-                             else lay.state(cache["conv"], -1))
-            proj = lay.reduce(u @ lay.sharded(p["x_proj"], -2),
-                              grad_model=Partial())
-            w = {"dt_bias": lay.sharded(p["dt_bias"], -1),
-                 "A_log": lay.sharded(p["A_log"], -2),
-                 "D": lay.sharded(p["D"], -1)}
-            y = L.mamba_scan(w, u, z, proj, cfg.mamba_d_state,
-                             None if cache is None
-                             else lay.state(cache["ssm"], -2))
-            out = lay.reduce(y @ lay.sharded(p["out_proj"], -2))
+        xl = lay.x_in(x)
+        xz = _Regroup.apply(lay, xl @ lay.sharded(p["in_proj"], -1), 2)
+        xi, z = xz.chunk(2, -1)
+        u = L.mamba_conv(xi, lay.sharded(p["conv_w"], -1),
+                         None if cache is None
+                         else lay.state(cache["conv"], -1))
+        proj = lay.reduce(u @ lay.sharded(p["x_proj"], -2),
+                          grad_model=Partial())
+        w = {"dt_bias": lay.sharded(p["dt_bias"], -1),
+             "A_log": lay.sharded(p["A_log"], -2),
+             "D": lay.sharded(p["D"], -1)}
+        y = L.mamba_scan(w, u, z, proj, cfg.mamba_d_state,
+                         None if cache is None
+                         else lay.state(cache["ssm"], -2))
+        out = lay.reduce(y @ lay.sharded(p["out_proj"], -2))
     return lay.out(out), _next_cache(cache, ("conv", "ssm"))
 
 
@@ -888,8 +882,10 @@ def mlstm(p, x: DTensor, cfg, cache=None):
     output is row-parallel through ``down`` (all-reduced).  A decode step
     gathers q, k and v, updates this rank's shard of ``C`` (its value
     dims) and ``n`` (its key dims), all-reduces n . q and gathers C q.
-    Every rank runs the whole block when ``model`` divides neither the
-    channels nor (in the parallel form) the heads or their dims."""
+    Every rank runs the whole block when ``model`` and the heads divide
+    neither each other (in the parallel form; the decode step splits
+    the channels all the same), and the region raises when ``model``
+    does not divide the channels."""
     from repro_torch.models import layers as L
 
     lay = Layout(x)
@@ -898,14 +894,13 @@ def mlstm(p, x: DTensor, cfg, cache=None):
         raise ValueError(f"a decode step takes one token, got {S}")
     di, H = cfg.mamba_expand * d, cfg.n_heads
     hd = di // H
-    split = lay.channels(p["up"], di) and (
-        cache is not None or H % lay.m == 0 or lay.m % H == 0)
+    lay.channels("mlstm", p["up"], di)
+    split = cache is not None or H % lay.m == 0 or lay.m % H == 0
     with _region("mlstm"):
-        if not split:
+        if not split:  # the parallel form; decode splits in any case
             out, _ = L.mlstm(_whole(lay, p, _MLSTM),
-                             lay.x_in(x, grad_model=Replicate()), cfg,
-                             _whole_state(lay, cache, ("C", "n")))
-            return lay.out(out), _next_cache(cache, ("C", "n"))
+                             lay.x_in(x, grad_model=Replicate()), cfg)
+            return lay.out(out), None
         xl = lay.x_in(x)
         uz = _Regroup.apply(lay, xl @ lay.sharded(p["up"], -1), 2)
         u_r, z = uz.chunk(2, -1)
@@ -982,24 +977,24 @@ def slstm(p, x: DTensor, cfg, cache=None):
     rank's channels of i, f, z and o (``_Regroup``), the cell on those
     channels, and ``h`` gathered for the next step's ``h @ r``; the
     outputs are gathered once after the scan.  A decode step updates this
-    rank's shard of the ``h`` and ``c`` states.  Every rank runs the
-    whole block when ``model`` does not divide the channels."""
+    rank's shard of the ``h`` and ``c`` states.  Raises when ``model``
+    does not divide the channels."""
     from repro_torch.models import layers as L
 
     lay = Layout(x)
     B, S, d = x.shape
     if cache is not None and S != 1:
         raise ValueError(f"a decode step takes one token, got {S}")
+    lay.channels("slstm", p["w"], d)
+    lay.channels("slstm", p["r"], d)
     with _region("slstm"):
-        if not (lay.channels(p["w"], d) and lay.channels(p["r"], d)):
-            out, _ = L.slstm(_whole(lay, p, ("w", "r")),
-                             lay.x_in(x, grad_model=Replicate()), cfg,
-                             _whole_state(lay, cache, ("h", "c")))
-            return lay.out(out), _next_cache(cache, ("h", "c"))
         xl = lay.x_in(x)
         w, r = lay.sharded(p["w"], -1), lay.sharded(p["r"], -1)
 
         def step(xt, h, c):
+            # float32, as the reference casts the gates before it splits
+            # them: GSPMD's plan permutes them in f32 (the while body's
+            # collective-permutes, tools/reference_collectives.py)
             g = _Regroup.apply(lay, (xt @ w + h @ r).float(), 4)
             return L.slstm_cell(g, c, x.dtype)
 

@@ -144,28 +144,35 @@ def test_cuda_bconv_tensor_core_chunks(cuda, logn):
     """The tensor-core kernel where no other test takes it: more source
     rows than one chunk of ``TC_CHUNK`` (its double-buffered loads and
     the residues carried across chunks), a ring smaller than its
-    coefficient tile (logN = 4), and the narrow kernel's shapes forced
-    onto it (``kernel="tensor_core"``); one CUDA launch a call, equal to
-    the plain version word for word, on random and on all-(q-1)
-    residues."""
+    coefficient tile (logN = 4), and the narrow kernel's shapes on an
+    operand 8 bytes past a 16-byte boundary, which the tensor-core
+    kernel takes; 36, 33 and again 36 rows (one instantiation, its
+    shared memory smaller and then larger again than the limit it was
+    given); one CUDA launch a call, equal to the plain version word for
+    word, on random and on all-(q-1) residues."""
     p = CKKSParams(logN=logn, L=35, alpha=36, k=140)
     rns = RNSContext(p)
     rng = np.random.default_rng(logn + 140)
     native.build_all()
-    for ls, ld, kernel in ((65, 9, "auto"), (140, 36, "auto"),
-                           (12, 36, "tensor_core"), (1, 35, "tensor_core"),
-                           (36, 36, "auto")):
+    for ls, ld, odd in ((65, 9, False), (140, 36, False), (12, 36, True),
+                        (1, 35, True), (36, 36, False), (33, 36, False),
+                        (36, 36, False)):
         c = BConvConsts(rns, p.p_primes[:ls], p.q_chain(35)[:ld], cuda)
         for lead in ((), (3,)):
             rand = _res(rng, c.src, lead + (ls, p.N)).to(cuda)
             top = (c.src_q[:, None] - 1).expand(rand.shape).contiguous()
             for x in (rand, top):
+                if odd:
+                    flat = torch.empty(x.numel() + 1, dtype=x.dtype,
+                                       device=cuda)
+                    x = flat[1:].view(x.shape).copy_(x)
+                    assert x.data_ptr() % 16 == 8
                 native.launch_log("bconv")
-                got = bconv(x, c, kernel=kernel)
+                got = bconv(x, c)
                 assert native.launch_log("bconv") == (1, [1])
                 assert torch.equal(got, bconv_plain(
                     x, c.qhat_inv, c.src_q, c.qhat_mod, c.dst_q)), \
-                    (ls, ld, lead, kernel)
+                    (ls, ld, lead, odd)
 
 
 @pytest.mark.cuda

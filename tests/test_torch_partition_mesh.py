@@ -26,7 +26,9 @@ attention layers; its ``conv`` and ``ssm`` states), and the xLSTM
 blocks (their ``C``, ``n``, ``h`` and ``c`` states) with 2 heads (a
 head's dims split over the ranks that share it on 1 x 4), 4 heads (whole
 heads on each rank) and 6 heads (the parallel form whole on every rank,
-the decode step split).
+the decode step split).  On 1 x 4, a Mamba, mLSTM or sLSTM block whose
+channels ``model`` does not divide raises (``UNSPLIT``): no rank runs
+such a block whole.
 """
 import json
 import os
@@ -66,6 +68,15 @@ CASES = [
     ("xlstm_h6", "xlstm_1_3b", {"n_heads": 6, "n_kv_heads": 6, "d_model": 48},
      8),
 ]
+# (case, arch, REDUCED config overrides, the block that raises): channels
+# that 4 ranks do not divide (Mamba's and the mLSTM's 2 * 49, the
+# sLSTM's 50; the mLSTM's 2 * 50 before it divide)
+UNSPLIT = [
+    ("jamba_d49", "jamba_1_5_large_398b", {"d_model": 49, "head_dim": 16},
+     "mamba"),
+    ("xlstm_d49", "xlstm_1_3b", {"d_model": 49}, "mlstm"),
+    ("xlstm_d50", "xlstm_1_3b", {"d_model": 50}, "slstm"),
+]
 # the regions each architecture's step must run, beyond the embedding,
 # the head, the loss and the greedy pick: (mixers, feed-forward blocks)
 REGIONS = {
@@ -99,6 +110,42 @@ RANKS = textwrap.dedent("""
                 out.update(flat(v, f"{prefix}#{i}"))
             return out
         return {prefix: tree}
+
+
+    def run_unsplit(mesh, arch, over):
+        # the message a training step on DTensors raises, or None
+        import torch
+        from torch.distributed.tensor import distribute_tensor
+        from torch.distributed.tensor.experimental import (
+            implicit_replication,
+        )
+
+        from repro_torch.configs import reduced_config
+        from repro_torch.launch import plan
+        from repro_torch.models.model import init_params
+        from repro_torch.models.steps import value_and_grad
+        from repro_torch.train.tree import tree_map
+
+        cfg = dataclasses.replace(reduced_config(arch), dtype="float32",
+                                  **over)
+        gen = torch.Generator().manual_seed(1)
+        params = init_params(cfg, gen, device="cpu")
+        tokens = torch.randint(0, cfg.vocab, (B, 8), generator=gen).int()
+        batch = {"tokens": tokens, "labels": tokens}
+
+        def place(tree, plans):
+            return tree_map(lambda t, pl: distribute_tensor(
+                t, mesh, pl.placements), tree, plans)
+
+        try:
+            with implicit_replication():
+                value_and_grad(place(params, plan.param_plan(cfg, mesh,
+                                                             params)),
+                               place(batch, plan.batch_plan(mesh, batch)),
+                               cfg)
+        except ValueError as e:
+            return str(e)
+        return None
 
 
     def run_case(mesh, arch, over, S, seen):
@@ -180,7 +227,7 @@ RANKS = textwrap.dedent("""
         return res
 
 
-    def rank_main(rank, world, tmp, meshes, cases):
+    def rank_main(rank, world, tmp, meshes, cases, unsplit):
         import torch
         import torch.distributed as dist
         from torch.distributed.device_mesh import init_device_mesh
@@ -208,6 +255,10 @@ RANKS = textwrap.dedent("""
                 for name, arch, over, S in cases:
                     out[f"{mname}/{name}"] = run_case(mesh, arch, over, S,
                                                       seen)
+                if mname == "1x4":
+                    for name, arch, over, _ in unsplit:
+                        out[f"{mname}/{name}"] = run_unsplit(mesh, arch,
+                                                             over)
             if rank == 0:
                 with open(f"{tmp}/result.json", "w") as f:
                     json.dump(out, f)
@@ -219,9 +270,10 @@ RANKS = textwrap.dedent("""
     if __name__ == "__main__":
         world, tmp = int(sys.argv[1]), sys.argv[2]
         meshes, cases = json.loads(sys.argv[3]), json.loads(sys.argv[4])
+        unsplit = json.loads(sys.argv[5])
         ctx = mp.get_context("spawn")
         procs = [ctx.Process(target=rank_main,
-                             args=(r, world, tmp, meshes, cases))
+                             args=(r, world, tmp, meshes, cases, unsplit))
                  for r in range(world)]
         for p in procs:
             p.start()
@@ -247,7 +299,7 @@ def results(tmp_path_factory):
                GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, str(script), str(WORLD), str(tmp),
-         json.dumps(MESHES), json.dumps(CASES)],
+         json.dumps(MESHES), json.dumps(CASES), json.dumps(UNSPLIT)],
         env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
     return json.loads((tmp / "result.json").read_text())
@@ -269,3 +321,10 @@ def test_partitioned_step_equals_plain(results, mesh, case):
     bad = {k: (e, m) for k, (e, m) in errors.items()
            if not e <= RTOL * max(m, FLOOR)}
     assert not bad, bad
+
+
+@pytest.mark.parametrize("case", [c[0] for c in UNSPLIT])
+def test_region_that_cannot_split_raises(results, case):
+    block = next(c[3] for c in UNSPLIT if c[0] == case)
+    msg = results[f"1x4/{case}"]
+    assert msg is not None and msg.startswith(f"{block}: cannot split"), msg

@@ -12,16 +12,17 @@ under its own ``build/``.  Needs a CUDA card.  At PAPER_PARAMS
 into the 36 primes of the chain, (2, 12) -> (2, 36); a rescale converts
 the last prime into the 35 below it, (1, 1) -> (1, 35).  A chain of the
 same size with one digit (alpha = k = 36) converts 36 primes into 36 at
-its ModDown, (2, 36) -> (2, 36) (``dnum1``).  Where the tree's ``bconv``
-can be told to (``kernel="tensor_core"``), the ModDown shape is also
-timed on the tensor-core kernel (``moddown_tensor_core``), which that
-shape does not take by default.  Each result is held equal to
-``bconv_plain`` first; then five medians of ``kernels.timing.cuda_ms``
-each.  Prints one JSON line: the tree, the median of the five for each
+its ModDown, (2, 36) -> (2, 36) (``dnum1``).  The ModDown shape is
+also timed on an operand 8 bytes past a 16-byte boundary
+(``moddown_unaligned``) and, where the tree's ``bconv.cu`` has the
+``HE2_BCONV_TC_ONLY`` study build, on the tensor-core kernel
+(``moddown_tensor_core``), which that shape does not take by default.
+Each result is held equal to ``bconv_plain`` first; then five medians
+of ``kernels.timing.cuda_ms`` each.  Prints one JSON line: the tree, the median of the five for each
 shape, and all five.  Run two trees in turns in one call (A, B, B, A)
 to compare them.
 """
-import inspect
+import ctypes
 import json
 import statistics
 import sys
@@ -54,21 +55,36 @@ def main() -> None:
     out = {}
     l = P.L + 1
     P1 = CKKSParams(logN=P.logN, L=P.L, alpha=l, k=l)
-    tc = "kernel" in inspect.signature(bconv).parameters
-    cases = [("moddown", rns, P.p_primes, P.q_chain(P.L), (2,), {}),
+    lib = native.lib("bconv")
+    tc = None
+    if "HE2_BCONV_TC_ONLY" in (native.CSRC / "bconv.cu").read_text():
+        paths, _ = native.compile_libs(["bconv"],
+                                       defines=("HE2_BCONV_TC_ONLY",))
+        tc = ctypes.CDLL(str(paths["bconv"]))
+    # (name, context, source primes, destination primes, leading shape,
+    #  operand 8 bytes past a 16-byte boundary, library)
+    cases = [("moddown", rns, P.p_primes, P.q_chain(P.L), (2,), False, lib),
+             ("moddown_unaligned", rns, P.p_primes, P.q_chain(P.L), (2,),
+              True, lib),
              ("rescale", rns, P.q_primes[l - 1:l], P.q_chain(l - 2), (1,),
-              {}),
+              False, lib),
              ("dnum1", RNSContext(P1), P1.p_primes, P1.q_chain(P1.L), (2,),
-              {})]
-    if tc:
+              False, lib)]
+    if tc is not None:
         cases.append(("moddown_tensor_core", rns, P.p_primes,
-                      P.q_chain(P.L), (2,), {"kernel": "tensor_core"}))
-    for name, r, src, dst, lead, kw in cases:
+                      P.q_chain(P.L), (2,), False, tc))
+    for name, r, src, dst, lead, odd, library in cases:
         cc = BConvConsts(r, src, dst, dev)
         x = res(src, lead + (len(src), P.N))
-        assert torch.equal(bconv(x, cc, **kw), bconv_plain(
+        if odd:
+            flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+            x = flat[1:].view(x.shape).copy_(x)
+            assert x.data_ptr() % 16 == 8
+        native._libs["bconv"] = library
+        assert torch.equal(bconv(x, cc), bconv_plain(
             x, cc.qhat_inv, cc.src_q, cc.qhat_mod, cc.dst_q))
-        out[name] = [cuda_ms(lambda: bconv(x, cc, **kw)) for _ in range(5)]
+        out[name] = [cuda_ms(lambda: bconv(x, cc)) for _ in range(5)]
+        native._libs["bconv"] = lib
     print(json.dumps({"tree": tree, **{k: statistics.median(v)
                                        for k, v in out.items()},
                       "all": out}))

@@ -16,8 +16,8 @@ Needs a CUDA card.  Prints one JSON line per measurement:
     (2, 12) -> (2, 36), the rescale shape (1) -> (35) and the ModDown of
     a dnum = 1 chain (2, 36) -> (2, 36), N = 2^16: where ``bconv_kernel``
     takes the shape, every group size G it is built for with 32 or 64
-    lanes a tile; ``bconv_tc_kernel`` (the tensor-core kernel) at every
-    shape; each checked against the plain version, with the registers
+    lanes a tile; ``bconv_tc_kernel`` (the tensor-core kernel, from a
+    ``-DHE2_BCONV_TC_ONLY`` build) at every shape; each checked against the plain version, with the registers
     and spills of each kernel; beside them, a device copy of the output
     as a yardstick for the memory, and the shape's default kernel (and
     the tensor-core one) built with ``-DHE2_BCONV_NO_LOAD``,
@@ -123,6 +123,8 @@ PROBES = (("HE2_BCONV_NO_LOAD",), ("HE2_BCONV_NO_STORE",),
           ("HE2_TC_NO_EPILOGUE",), ("HE2_TC_WARPS=4",), ("HE2_TC_WARPS=16",))
 # the probes whose results are checked (the others leave work out)
 CHECKED = ("WARPS",)
+# the study build that takes every shape to the tensor-core kernel
+TC_ONLY = ("HE2_BCONV_TC_ONLY",)
 
 
 def ptxas_bconv(text: str) -> dict:
@@ -156,6 +158,19 @@ def bconv_study(P, pc, rng, xp) -> None:
     if "bconv" in report:
         emit({"bconv_g_regs_spills": ptxas_bconv(report["bconv"]["ptxas"])})
     lib_bc = native.lib("bconv")
+    libs = {}
+
+    def study_lib(defines):
+        """bconv.cu built with ``defines`` (once), loaded."""
+        if defines not in libs:
+            paths, rep = native.compile_libs(["bconv"], defines=defines)
+            if "bconv" in rep:
+                emit({"bconv_probe": defines,
+                      "regs_spills": ptxas_bconv(rep["bconv"]["ptxas"])})
+            libs[defines] = ctypes.CDLL(str(paths["bconv"]))
+        return libs[defines]
+
+    lib_tc = study_lib(TC_ONLY)
     dev, N = xp.device, P.N
     base, kp = P.q_chain(P.L), P.p_primes
     x1 = residues(rng, base[-1:], (1, N), dev)
@@ -172,7 +187,7 @@ def bconv_study(P, pc, rng, xp) -> None:
         yy = torch.empty_like(want)
         batch = xx.numel() // (c.ls * N)
 
-        def launch(lib, geo, path):
+        def launch(lib, geo):
             return lambda: native.invoke(
                 lib, "bconv", xx.data_ptr(), yy.data_ptr(),
                 c.qhat_inv_m.data_ptr(), c.src_q32.data_ptr(),
@@ -180,7 +195,7 @@ def bconv_study(P, pc, rng, xp) -> None:
                 c.dst_qn32.data_ptr(), c.tc_src.data_ptr(),
                 c.tc_c.data_ptr(), c.tc_epi.data_ptr(), batch, c.ls, c.ld,
                 P.logN, c.g_acc, geo.g, geo.lanes, geo.threads, geo.tiles,
-                geo.groups, path)
+                geo.groups)
 
         def checked(fn, what):
             yy.zero_()
@@ -198,9 +213,9 @@ def bconv_study(P, pc, rng, xp) -> None:
         if c.ls <= CHUNK:  # the narrow kernel's geometries
             for g, lanes in itertools.product(GROUP_ROWS, (32, 64)):
                 gg = geometry(batch, c.ls, c.ld, P.logN, g, lanes)
-                row[f"g{g}_l{lanes}_ms"] = checked(launch(lib_bc, gg, 0), gg)
+                row[f"g{g}_l{lanes}_ms"] = checked(launch(lib_bc, gg), gg)
         # the tensor-core kernel at this shape, whatever the default
-        row["tensor_core_ms"] = checked(launch(lib_bc, geo, 1), "tensor core")
+        row["tensor_core_ms"] = checked(launch(lib_tc, geo), "tensor core")
         row["copy_output_ms"] = cuda_ms(lambda: yy.copy_(want), reps=20)
         # the default kernel and the tensor-core one built without their
         # loads, their stores or both; the tensor-core one also without
@@ -210,27 +225,24 @@ def bconv_study(P, pc, rng, xp) -> None:
         for probe in PROBES:
             tag = "+".join(p.replace("HE2_BCONV_", "").replace("HE2_", "")
                            .lower() for p in probe)
-            try:
-                paths, rep = native.compile_libs(["bconv"], defines=probe)
-            except RuntimeError as e:  # a study build that does not compile
-                row["tensor_core_" + tag + "_ms"] = f"build failed: {e}"[:300]
-                continue
-            if "bconv" in rep:
-                emit({"bconv_probe": probe,
-                      "regs_spills": ptxas_bconv(rep["bconv"]["ptxas"])})
-            lib = ctypes.CDLL(str(paths["bconv"]))
-            tc_only = probe[0].startswith("HE2_TC")
-            if not tc_only:
-                row[tag + "_ms"] = cuda_ms(launch(lib, geo, 0), reps=20)
-            if tc_only or c.ls <= CHUNK:
-                fn = launch(lib, geo, 1)
+            tc_probe = probe[0].startswith("HE2_TC")
+            builds = [] if tc_probe else [("", probe)]
+            if tc_probe or c.ls <= CHUNK:
+                builds.append(("tensor_core_", probe + TC_ONLY))
+            for prefix, defines in builds:
+                key = prefix + tag + "_ms"
                 try:
-                    row["tensor_core_" + tag + "_ms"] = (
-                        checked(fn, probe)
-                        if any(k in probe[0] for k in CHECKED)
-                        else cuda_ms(fn, reps=20))
+                    lib = study_lib(defines)
+                except RuntimeError as e:  # a study build that does not compile
+                    row[key] = f"build failed: {e}"[:300]
+                    continue
+                fn = launch(lib, geo)
+                try:
+                    row[key] = (checked(fn, probe)
+                                if any(k in probe[0] for k in CHECKED)
+                                else cuda_ms(fn, reps=20))
                 except AssertionError as e:
-                    row["tensor_core_" + tag + "_ms"] = f"wrong: {e}"
+                    row[key] = f"wrong: {e}"
         emit(row)
 
 
